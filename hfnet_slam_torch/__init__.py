@@ -1,0 +1,22 @@
+"""Deep-feature SLAM on PyTorch and CUDA (NVIDIA Hopper).
+
+The port of `hfnet_slam_tpu` (the JAX reference, which stays beside it
+unchanged). It mirrors the reference's layout so each counterpart is easy to
+find, and imports neither `jax` nor any module of the reference:
+
+  lie.py          -- SO3/SE3 exp/log, retraction, orthonormalization
+  geometry/       -- cameras, triangulation, two-view initialization
+  models/         -- the Features record and the deterministic fake extractor
+  ops/            -- descriptor matching; the brute-force matcher kernel
+  optim/          -- pose-only LM and Schur-complement bundle adjustment
+  slam/           -- map store, device mirrors, tracking, local mapping, facade
+  native/         -- C++ host runtime (covisibility bookkeeping) via ctypes
+  csrc/           -- hand-written CUDA kernels (built with nvcc at first use)
+  evaluation/     -- ATE (Horn alignment)
+  convert.py      -- map and tracker state carried over from the reference
+
+Entry points run on CUDA unless the caller passes `device="cpu"`; with no
+CUDA device they raise instead of falling back to the CPU.
+"""
+
+__version__ = "0.1.0"

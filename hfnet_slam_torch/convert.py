@@ -1,0 +1,55 @@
+"""State carried over from the JAX reference package.
+
+The slice has no learned weights (the fake extractor stands in for HF-Net),
+so what crosses packages is the map and the tracker's frame state:
+  * store_from_reference: the exact .npz the reference's MapStore.save
+    writes (hfnet_slam_tpu/slam/map.py, `_ARRAY_FIELDS`) -> the port's
+    MapStore;
+  * tracker_state_from_reference: the reference tracker's last-frame pose
+    and observations, velocity, reference keyframe and local-map candidate
+    ids, as numpy, applied to a port Tracker.
+Neither reads JAX arrays: the caller hands numpy (np.asarray) across.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from .slam.map import MapStore
+from .slam.tracking import OK, Frame, Tracker
+
+
+def store_from_reference(npz_path_or_dict) -> MapStore:
+    """Port MapStore from a reference map snapshot (a path, an open file, or
+    the dict-like np.load result)."""
+    if isinstance(npz_path_or_dict, dict):
+        import io
+
+        buf = io.BytesIO()
+        np.savez(buf, **npz_path_or_dict)
+        buf.seek(0)
+        return MapStore.load(buf)
+    return MapStore.load(npz_path_or_dict)
+
+
+def tracker_state_from_reference(tracker: Tracker, store: MapStore, *, last_R, last_t,
+                                 last_obs, last_feats, last_timestamp, velocity,
+                                 ref_kf, local_ids):
+    """Install the reference tracker's frame state on a port Tracker.
+
+    last_R/last_t: the last frame's world->cam pose; last_obs: its (N,) slot
+    -> map point ids; last_feats: its Features (port tensors);
+    velocity: (R_v, t_v) or None; ref_kf: reference keyframe slot;
+    local_ids: the next frame's (local_mp_cap,) candidate ids or None."""
+    tracker.store = store
+    frame = Frame(feats=last_feats, timestamp=float(last_timestamp),
+                  R=np.asarray(last_R, np.float32).copy(),
+                  t=np.asarray(last_t, np.float32).copy(),
+                  obs=np.asarray(last_obs, np.int32).copy())
+    tracker.last_frame = frame
+    tracker.velocity = None if velocity is None else (
+        np.asarray(velocity[0], np.float32), np.asarray(velocity[1], np.float32))
+    tracker.ref_kf = int(ref_kf)
+    tracker._local_ids = None if local_ids is None else np.asarray(local_ids, np.int32).copy()
+    tracker._seen_big = store.big_change_idx
+    tracker.state = OK
+    return tracker

@@ -1,0 +1,420 @@
+"""Local mapping: new-point triangulation, fuse, local BA, culling (visual).
+
+Counterpart of hfnet_slam_tpu/slam/local_mapping.py for the monocular visual
+path: the per-keyframe pipeline MapPointCulling -> CreateNewMapPoints ->
+SearchInNeighbors -> descriptor/stat refresh -> LocalBundleAdjustment ->
+KeyFrameCulling runs synchronously on keyframe insertion, with every compute
+block a batched kernel on the mapper's device (fused.triangulate_banked,
+fused.fuse_neighbors_banked, optim.ba) and the bookkeeping in numpy.
+
+Out of this slice: global BA and its correction propagation (loop closing,
+ROADMAP.md Queue 1 item 14), the distributed solvers (item 17), visual-
+inertial BA (item 15) and the stereo rig's right-camera edges (item 16).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import device as D
+from ..optim import ba
+from . import fused
+from . import map as map_mod
+from .map import MapStore
+from .pipeline import NULL_LOCK
+
+
+@dataclasses.dataclass
+class MapperConfig:
+    """The reference's MapperConfig, field for field."""
+
+    tri_neighbors: int = 30
+    tri_min_covis: int = 15
+    min_baseline_depth_ratio: float = 0.01
+    chi2_epi: float = 16.0
+    tri_min_parallax_cos: float = 0.9998
+    fuse_radius: float = 3.0
+    fuse_max_dist: float = 0.6
+    cull_found_ratio: float = 0.25
+    cull_min_obs: int = 2
+    cull_horizon_kfs: int = 3
+    kf_cull_redundancy: float = 0.9
+    kf_cull_min_obs: int = 3
+    kf_cull_min_age: int = 3
+    kf_cull_max_per_round: int = 1
+    ba_kf_cap: int = 32
+    ba_mp_cap: int = 4096
+    ba_edge_cap: int = 16384
+    ba_local_kfs: int = 12
+    ba_rounds: tuple = ((5, True), (10, True))
+    init_ba_rounds: tuple = ((20, True),)
+    bf: float = 0.0
+    iba_window: int = 10
+    iba_kf_cap: int = 24
+    iba_mp_cap: int = 2048
+    iba_edge_cap: int = 8192
+    iba_rounds: tuple = ((4, True), (6, False))
+    rig: tuple = None
+    fiba_kf_cap: int = 48
+    fiba_max_joint: int = 256
+    fiba_rounds: tuple = ((8, True), (12, False))
+    fiba_dist: bool = True
+
+
+class LocalMapper:
+    def __init__(self, cam, store: MapStore, cfg: MapperConfig = None, device=None):
+        self.device = D.resolve(device)
+        self.cam = cam.to(self.device)
+        self.store = store
+        self.cfg = cfg or MapperConfig()
+        if self.cfg.rig is not None:
+            raise NotImplementedError(
+                "stereo-rig right-camera BA edges are ROADMAP.md Queue 1 item 16")
+        self.lock = NULL_LOCK
+        self.abort_ba = False  # mbAbortBA: stop between LM rounds, keep results
+        self.recent_points: list[tuple[int, int]] = []
+        self.kf_count = 0
+        self.kf_born: dict[int, int] = {}
+        self.stats = {"triangulated": 0, "culled_points": 0, "culled_kfs": 0, "fused": 0}
+
+    def _t(self, x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def initial_ba(self, kf0: int, kf1: int):
+        """Two-keyframe global BA after monocular initialization (first KF
+        fixed), sized to the 2-KF problem."""
+        store = self.store
+        n_mp = int((store.kf_obs[kf1] >= 0).sum())
+        mp_cap = 1 << max(6, int(max(n_mp, 1) - 1).bit_length())
+        self._run_ba([kf0, kf1], fixed_ids=[kf0], rounds=self.cfg.init_ba_rounds,
+                     kf_cap=2, mp_cap=mp_cap, edge_cap=2 * mp_cap)
+
+    def process_keyframe(self, k: int, do_ba: bool = True):
+        """The per-keyframe mapping pipeline (LocalMapping::Run body)."""
+        self.abort_ba = False
+        with self.lock:
+            self.kf_count += 1
+            self.kf_born[k] = self.kf_count
+            self.cull_map_points()
+        self.create_new_points(k)
+        self.fuse_neighbors(k)
+        with self.lock:
+            seen = self.store.kf_obs[k]
+            seen = np.unique(seen[seen >= 0])
+            g = self.store.gather_distinctive(seen)
+        best = None if g is None else map_mod.distinctive_kernel(g[1], g[2], self.device)
+        with self.lock:
+            if best is not None:
+                self.store.apply_distinctive(g[0], best)
+            self.store.update_point_stats(seen)
+        if do_ba:
+            self.local_ba(k)
+        with self.lock:
+            self.cull_keyframes(k)
+
+    # ------------------------------------------------------------------
+    def cull_map_points(self):
+        store = self.store
+        cfg = self.cfg
+        keep: list[tuple[int, int]] = []
+        drop: list[int] = []
+        for mp, born in self.recent_points:
+            if not store.mp_valid[mp]:
+                continue
+            age = self.kf_count - born
+            ratio = store.mp_found[mp] / max(store.mp_visible[mp], 1)
+            if ratio < cfg.cull_found_ratio:
+                drop.append(mp)
+            elif age >= 2 and store.mp_obs_count[mp] <= cfg.cull_min_obs:
+                drop.append(mp)
+            elif age < cfg.cull_horizon_kfs:
+                keep.append((mp, born))
+        store.remove_points(drop)
+        self.recent_points = keep
+        self.stats["culled_points"] += len(drop)
+
+    # ------------------------------------------------------------------
+    def create_new_points(self, k: int):
+        """CreateNewMapPoints: all covisible neighbors matched, triangulated
+        and gated in one batched device call against the keyframe bank; the
+        host assigns the surviving observations."""
+        store = self.store
+        cfg = self.cfg
+        if not store.kf_valid[k]:
+            return
+        neighbors = store.covisible_kfs(k, n=cfg.tri_neighbors, min_weight=cfg.tri_min_covis)
+        if len(neighbors) == 0:
+            return
+        Rk, tk = store.kf_R[k].copy(), store.kf_t[k].copy()
+        f_px = self.cam.fx
+        seen = store.kf_obs[k]
+        seen = seen[seen >= 0]
+        med_depth = float(np.median((store.mp_pos[seen] @ Rk.T + tk)[:, 2])) \
+            if len(seen) > 0 else 1.0
+        ck = -Rk.T @ tk
+        keep = []
+        for j in neighbors:  # baseline gate (LocalMapping.cc:603)
+            cj = -store.kf_R[j].T @ store.kf_t[j]
+            if np.linalg.norm(ck - cj) >= cfg.min_baseline_depth_ratio * med_depth:
+                keep.append(int(j))
+        if not keep:
+            return
+        B = 1 << int(np.ceil(np.log2(max(cfg.tri_neighbors, 1))))
+        nbr = np.full(B, -1, np.int64)
+        R21 = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+        t21 = np.zeros((B, 3), np.float32)
+        for bi, j in enumerate(keep):
+            nbr[bi] = j
+            R21[bi] = store.kf_R[j] @ Rk.T
+            t21[bi] = store.kf_t[j] - R21[bi] @ tk
+        bank = fused.get_kf_bank(store, self.cam, self.device)
+        bank.sync()
+        _, b_desc, b_oct, b_mask, b_xn, b_obs = bank.snapshot()
+        idx, good, p1 = fused.triangulate_banked(
+            int(k), self._t(nbr, torch.int64), self._t(R21), self._t(t21),
+            b_desc, b_oct, b_mask, b_xn, b_obs, f_px, max_dist=0.6,
+            chi2_epi=float(cfg.chi2_epi), min_parallax_cos=float(cfg.tri_min_parallax_cos))
+        idx, good, p1 = idx.cpu().numpy(), good.cpu().numpy(), p1.cpu().numpy()
+
+        n_new = 0
+        claimed = ~(store.kf_mask[k] & (store.kf_obs[k] < 0))
+        for bi, j in enumerate(keep):
+            if not store.kf_valid[j]:
+                continue
+            s_k = np.nonzero(good[bi] & ~claimed)[0]
+            if len(s_k) == 0:
+                continue
+            s_j = idx[bi][s_k]
+            still = store.kf_obs[j][s_j] < 0
+            s_k, s_j = s_k[still], s_j[still]
+            if len(s_k) == 0:
+                continue
+            pw = (p1[bi][s_k] - tk[None, :]) @ Rk
+            d = store.kf_desc[k][s_k] + store.kf_desc[j][s_j]
+            d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+            ids = store.add_points(pw, d, first_kf=k)
+            store.assign_observations(k, s_k, ids)
+            store.assign_observations(j, s_j, ids)
+            self.recent_points.extend((int(i), self.kf_count) for i in ids)
+            claimed[s_k] = True
+            n_new += len(ids)
+        if n_new:
+            store.update_covisibility(k)
+        self.stats["triangulated"] += n_new
+
+    # ------------------------------------------------------------------
+    def fuse_neighbors(self, k: int):
+        """SearchInNeighbors: project each neighbor's points into KF k and
+        k's into the neighbors in one batched device call; the host applies
+        the matches with the duplicate checks."""
+        store = self.store
+        cfg = self.cfg
+        if not store.kf_valid[k]:
+            return
+        neighbors = store.covisible_kfs(k, n=cfg.tri_neighbors, min_weight=cfg.tri_min_covis)
+        if len(neighbors) == 0:
+            return
+        pairs = [(k, int(j)) for j in neighbors] + [(int(j), k) for j in neighbors]
+        P = 1 << int(np.ceil(np.log2(max(2 * cfg.tri_neighbors, 2))))
+        tgt_ids = np.full(P, -1, np.int64)
+        src_ids = np.full(P, -1, np.int64)
+        R_t = np.tile(np.eye(3, dtype=np.float32), (P, 1, 1))
+        t_t = np.zeros((P, 3), np.float32)
+        cand_host = np.full((P, store.n_slots), -1, np.int32)
+        for pi, (tgt, src) in enumerate(pairs):
+            tgt_ids[pi], src_ids[pi] = tgt, src
+            R_t[pi], t_t[pi] = store.kf_R[tgt], store.kf_t[tgt]
+            cand_host[pi] = store.kf_obs[src]
+        dm = fused.get_device_map(store, self.device)
+        dm.sync()
+        pos_s, desc_s, _, _, _, valid_s = dm.snapshot()
+        bank = fused.get_kf_bank(store, self.cam, self.device)
+        bank.sync()
+        b_xy, b_desc, b_oct, b_mask, _, b_obs = bank.snapshot()
+        idx = fused.fuse_neighbors_banked(
+            self.cam.kind, self.cam.params, float(self.cam.width), float(self.cam.height),
+            self._t(tgt_ids, torch.int64), self._t(src_ids, torch.int64),
+            self._t(R_t), self._t(t_t), b_xy, b_desc, b_oct, b_mask, b_obs,
+            pos_s, desc_s, valid_s, radius=float(cfg.fuse_radius),
+            max_dist=float(cfg.fuse_max_dist)).cpu().numpy()
+
+        for pi, (tgt, src) in enumerate(pairs):
+            if not store.kf_valid[tgt]:
+                continue
+            slots = np.nonzero(idx[pi] >= 0)[0]
+            if len(slots) == 0:
+                continue
+            mp_new = cand_host[pi][idx[pi][slots]]
+            ok = store.mp_valid[mp_new]
+            tgt_obs = store.kf_obs[tgt]
+            ok &= ~np.isin(mp_new, tgt_obs[tgt_obs >= 0])
+            _, first = np.unique(mp_new, return_index=True)
+            uniq = np.zeros(len(mp_new), bool)
+            uniq[first] = True
+            ok &= uniq
+            ok &= store.kf_obs[tgt][slots] < 0
+            if ok.any():
+                store.assign_observations(tgt, slots[ok], mp_new[ok])
+                self.stats["fused"] += int(ok.sum())
+        if store.kf_valid[k]:
+            store.update_covisibility(k)
+
+    # ------------------------------------------------------------------
+    def local_ba(self, k: int):
+        """LocalBundleAdjustment: k's covisible window optimizes; observers
+        outside it are fixed, with at least two fixed cameras to pin the
+        monocular gauge (scale included)."""
+        store = self.store
+        cfg = self.cfg
+        local = store.covisible_kfs(k, n=cfg.ba_local_kfs, min_weight=1)
+        local = np.unique(np.append(local, k))
+        mp_ids = store.points_seen_by(local)
+        if len(mp_ids) == 0:
+            return
+        kf_e, _, _ = store.observing_slots(mp_ids)
+        all_kfs = np.unique(kf_e)
+        fixed = np.setdiff1d(all_kfs, local)
+        fixed_ids = set(int(i) for i in fixed) | {int(all_kfs.min())}
+        for cand in sorted(int(i) for i in all_kfs):
+            if len(fixed_ids) >= 2:
+                break
+            fixed_ids.add(cand)
+        self._run_ba(list(all_kfs), fixed_ids=fixed_ids, rounds=cfg.ba_rounds,
+                     mp_ids=mp_ids, should_abort=lambda: self.abort_ba)
+
+    def _gather_edges(self, kf_ids, mp_ids, kf_cap, mp_cap, edge_cap):
+        """(kf, slot, mp) observation triples among the given keyframe and
+        point sets, capacity-trimmed."""
+        store = self.store
+        kf_ids = np.asarray(sorted(int(i) for i in kf_ids), int)[:kf_cap]
+        if mp_ids is None:
+            mp_ids = store.points_seen_by(kf_ids)
+        kf_in = np.isin(np.arange(store.k_max), kf_ids)
+        kf_e, slot_e, mp_e = store.observing_slots(mp_ids)
+        keep = kf_in[kf_e]
+        kf_e, slot_e, mp_e = kf_e[keep], slot_e[keep], mp_e[keep]
+        if len(kf_e) == 0:
+            return kf_ids, np.empty(0, int), kf_e, slot_e, mp_e
+        mp_ids = np.intersect1d(mp_ids, np.unique(mp_e))[:mp_cap]
+        mp_keep = np.isin(mp_e, mp_ids)
+        kf_e, slot_e, mp_e = kf_e[mp_keep], slot_e[mp_keep], mp_e[mp_keep]
+        return kf_ids, mp_ids, kf_e[:edge_cap], slot_e[:edge_cap], mp_e[:edge_cap]
+
+    def _edge_arrays(self, kf_ids, mp_ids, kf_e, slot_e, mp_e, E):
+        """Padded fixed-shape edge arrays for a BA problem."""
+        store = self.store
+        kf_loc = np.zeros(store.k_max, np.int64)
+        kf_loc[kf_ids] = np.arange(len(kf_ids))
+        mp_loc = np.zeros(store.m_max, np.int64)
+        mp_loc[mp_ids] = np.arange(len(mp_ids))
+        kf_idx = np.zeros(E, np.int64)
+        pt_idx = np.zeros(E, np.int64)
+        uv = np.zeros((E, 2), np.float32)
+        inv_s2 = np.ones(E, np.float32)
+        valid = np.zeros(E, bool)
+        n_e = len(kf_e)
+        kf_idx[:n_e] = kf_loc[kf_e]
+        pt_idx[:n_e] = mp_loc[mp_e]
+        uv[:n_e] = store.kf_xy[kf_e, slot_e]
+        inv_s2[:n_e] = 1.0 / (1.2 ** (2.0 * store.kf_octave[kf_e, slot_e]))
+        valid[:n_e] = True
+        return kf_idx, pt_idx, uv, inv_s2, valid
+
+    def _detach_outliers(self, out_valid, kf_e, slot_e, mp_ids):
+        """Erase observations classified as outliers; kill orphaned points."""
+        store = self.store
+        bad = ~out_valid
+        if bad.any():
+            kf_b, slot_b = kf_e[bad], slot_e[bad]
+            alive = store.kf_valid[kf_b]
+            kf_b, slot_b = kf_b[alive], slot_b[alive]
+            for kf in np.unique(kf_b):
+                sel = kf_b == kf
+                store.assign_observations(int(kf), slot_b[sel],
+                                          np.full(int(sel.sum()), -1, np.int32))
+            orphans = mp_ids[store.mp_valid[mp_ids] & (store.mp_obs_count[mp_ids] < 2)]
+            store.remove_points(orphans)
+
+    def _run_ba(self, kf_ids, fixed_ids, rounds, mp_ids=None, kf_cap=None,
+                mp_cap=None, edge_cap=None, should_abort=None):
+        """Build a fixed-capacity BAProblem from the store, solve it on the
+        device, write back, and detach outlier observations. An abort keeps
+        the completed rounds (g2o's forceStop)."""
+        cfg = self.cfg
+        K = kf_cap or cfg.ba_kf_cap
+        M = mp_cap or cfg.ba_mp_cap
+        E = edge_cap or cfg.ba_edge_cap
+        store = self.store
+        kf_ids, mp_ids, kf_e, slot_e, mp_e = self._gather_edges(kf_ids, mp_ids, K, M, E)
+        if len(kf_e) == 0:
+            return None
+        poses_R = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+        poses_t = np.zeros((K, 3), np.float32)
+        poses_R[: len(kf_ids)] = store.kf_R[kf_ids]
+        poses_t[: len(kf_ids)] = store.kf_t[kf_ids]
+        fixed = np.ones(K, bool)
+        fixed[: len(kf_ids)] = [int(i) in fixed_ids for i in kf_ids]
+        points = np.zeros((M, 3), np.float32)
+        points[: len(mp_ids)] = store.mp_pos[mp_ids]
+        kf_idx, pt_idx, uv, inv_s2, valid = self._edge_arrays(
+            kf_ids, mp_ids, kf_e, slot_e, mp_e, E)
+        n_e = len(kf_e)
+        prob = ba.BAProblem(
+            poses_R=self._t(poses_R), poses_t=self._t(poses_t),
+            fixed=self._t(fixed, torch.bool), points=self._t(points),
+            kf_idx=self._t(kf_idx, torch.int64), pt_idx=self._t(pt_idx, torch.int64),
+            uv=self._t(uv), inv_sigma2=self._t(inv_s2), valid=self._t(valid, torch.bool))
+        out = ba.bundle_adjust(self.cam.kind, self.cam.params, prob, rounds=rounds,
+                               should_abort=should_abort)
+        R_new = out.poses_R.cpu().numpy()[: len(kf_ids)]
+        t_new = out.poses_t.cpu().numpy()[: len(kf_ids)]
+        pts = out.points.cpu().numpy()[: len(mp_ids)]
+        out_valid = out.valid.cpu().numpy()
+
+        free = ~fixed[: len(kf_ids)] & store.kf_valid[kf_ids]
+        store.kf_R[kf_ids[free]] = R_new[free]
+        store.kf_t[kf_ids[free]] = t_new[free]
+        alive = store.mp_valid[mp_ids]
+        store.mp_pos[mp_ids[alive]] = pts[alive]
+        self._detach_outliers(out_valid[:n_e], kf_e, slot_e, mp_ids)
+        store.mark_points_dirty(mp_ids)
+        store.bump_change(dirty_points=False)
+        return {"kf_ids": kf_ids, "mp_ids": mp_ids}
+
+    # ------------------------------------------------------------------
+    def cull_keyframes(self, k: int):
+        """KeyFrameCulling: remove a local covisible KF when >90% of its
+        points are seen by >=3 other keyframes at the same or finer scale."""
+        store = self.store
+        cfg = self.cfg
+        n_culled = 0
+        for j in store.covisible_kfs(k, n=cfg.ba_local_kfs, min_weight=1):
+            j = int(j)
+            if j == k or j <= 1:  # never cull the init pair
+                continue
+            if self.kf_count - self.kf_born.get(j, 0) < cfg.kf_cull_min_age:
+                continue
+            slots = np.nonzero(store.kf_obs[j] >= 0)[0]
+            if len(slots) == 0:
+                continue
+            mp = store.kf_obs[j][slots]
+            oct_j = store.kf_octave[j, slots]
+            kf_e, slot_e, mp_e = store.observing_slots(mp)
+            other = kf_e != j
+            if not other.any():
+                continue
+            loc = np.zeros(store.m_max, np.int64)
+            loc[mp] = np.arange(len(mp))
+            oct_e = store.kf_octave[kf_e[other], slot_e[other]]
+            finer = oct_e <= oct_j[loc[mp_e[other]]] + 1
+            counts = np.zeros(len(mp), np.int64)
+            np.add.at(counts, loc[mp_e[other]][finer], 1)
+            if (counts >= cfg.kf_cull_min_obs).mean() > cfg.kf_cull_redundancy:
+                store.remove_keyframe(j)
+                self.stats["culled_kfs"] += 1
+                n_culled += 1
+                if n_culled >= cfg.kf_cull_max_per_round:
+                    break

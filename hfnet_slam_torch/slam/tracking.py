@@ -1,0 +1,630 @@
+"""Per-frame tracking: the SLAM front-end state machine (visual branches).
+
+Counterpart of hfnet_slam_tpu/slam/tracking.py. The irregular state machine
+stays in host Python and numpy; every per-frame compute block (projection
+and brute-force matching, pose optimization, the fused track_step) runs on
+the tracker's device. States: NOT_INITIALIZED -> OK -> (RECENTLY_)LOST.
+
+Out of this slice, and raising NotImplementedError when reached:
+relocalization (ROADMAP.md Queue 1 item 14), visual-inertial tracking (item
+15) and stereo/RGB-D depth (item 16). A track lost on a mature map therefore
+fails loudly instead of silently diverging from the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import device as D
+from .. import lie
+from ..geometry import cameras, twoview
+from ..models.extractor import Features
+from ..optim import pose_opt
+from . import fused, search
+from .map import MapStore
+from .pipeline import NULL_LOCK
+
+NOT_INITIALIZED = 0
+OK = 1
+LOST = 2
+RECENTLY_LOST = 3
+
+_STATE_NAMES = {0: "NOT_INITIALIZED", 1: "OK", 2: "LOST", 3: "RECENTLY_LOST"}
+
+
+def _orthonormalize_np(R):
+    """Nearest rotation (Frobenius) via SVD for the host-side motion model."""
+    U, _, Vt = np.linalg.svd(R.astype(np.float64))
+    W = U @ Vt
+    if np.linalg.det(W) < 0:
+        U[:, -1] = -U[:, -1]
+        W = U @ Vt
+    return W.astype(np.float32)
+
+
+@dataclasses.dataclass
+class TrackerConfig:
+    """The reference's TrackerConfig, field for field."""
+
+    motion_window: float = 15.0
+    motion_window_retry: float = 30.0
+    local_window: float = 4.0
+    init_window: float = 100.0
+    th_high: float = 0.75
+    th_low: float = 0.6
+    min_init_matches: int = 100
+    init_match_max_dist: float = 0.6
+    init_match_ratio: float = 0.9
+    min_motion_matches: int = 20
+    min_ref_matches: int = 15
+    min_pose_inliers: int = 10
+    min_local_inliers: int = 30
+    max_frames_between_kf: int = 10
+    min_frames_between_kf: int = 0
+    kf_ref_ratio: float = 0.9
+    min_reloc_matches: int = 15
+    min_reloc_pnp_inliers: int = 10
+    min_reloc_inliers: int = 50
+    recently_lost_frames: int = 60
+    mature_map_kfs: int = 10
+    pnp_hyps: int = 256
+    th_depth: float = 35.0
+    th_far: float = 0.0
+    min_stereo_init_points: int = 100
+    max_depth_points_per_kf: int = 100
+    bf: float = 0.0
+    local_mp_cap: int = 4096
+    min_init_points: int = 60
+    min_init_med_parallax_deg: float = 1.5
+    vi_marg_prior: bool = True
+
+
+@dataclasses.dataclass
+class TrajEntry:
+    """One tracked frame: the absolute pose at track time plus its pose
+    relative to the reference keyframe, so later corrections reach it."""
+
+    ts: float
+    R: np.ndarray
+    t: np.ndarray
+    store: object = None
+    ref_uid: int = -1
+    R_rel: Optional[np.ndarray] = None
+    t_rel: Optional[np.ndarray] = None
+
+    def __iter__(self):
+        return iter((self.ts, self.R, self.t))
+
+    def recovered_pose(self):
+        if self.store is None or self.ref_uid < 0 or self.R_rel is None:
+            return self.R, self.t
+        hit = self.store.resolve_uid(int(self.ref_uid))
+        if hit is None:
+            return self.R, self.t
+        slot, R_ch, t_ch = hit
+        R_ref = R_ch @ self.store.kf_R[slot]
+        t_ref = R_ch @ self.store.kf_t[slot] + t_ch
+        return self.R_rel @ R_ref, self.R_rel @ t_ref + self.t_rel
+
+
+@dataclasses.dataclass
+class Frame:
+    feats: Features                     # tensors on the tracker's device
+    timestamp: float
+    R: Optional[np.ndarray] = None      # world->cam, float32
+    t: Optional[np.ndarray] = None
+    obs: Optional[np.ndarray] = None    # (N_slots,) mp id or -1
+    _host: Optional[Features] = None
+
+    @property
+    def host(self) -> Features:
+        """numpy copy of the features, made once per frame."""
+        if self._host is None:
+            self._host = Features(*(x.cpu().numpy() for x in self.feats))
+        return self._host
+
+    @property
+    def n_feats(self):
+        return int(self.host.mask.sum())
+
+
+class Tracker:
+    def __init__(self, cam: cameras.Camera, store: MapStore, cfg: TrackerConfig = None,
+                 mapper=None, rng_seed: int = 0, device=None):
+        self.device = D.resolve(device)
+        self.cam = cam.to(self.device)
+        self.store = store
+        self.cfg = cfg or TrackerConfig()
+        self.mapper = mapper
+        self.state = NOT_INITIALIZED
+        self.last_frame: Optional[Frame] = None
+        self.init_ref: Optional[Frame] = None
+        self.velocity = None  # (R_v, t_v): T_cur = T_v o T_last
+        self.ref_kf = -1
+        self.frames_since_kf = 0
+        self.frame_id = 0
+        self.n_inliers = 0
+        self.frames_lost = 0
+        # RANSAC samples for two-view init: a generator seeded the way the
+        # reference seeds its PRNG key (tracking.py:196)
+        self._gen = torch.Generator().manual_seed(
+            int(np.random.default_rng(rng_seed).integers(0, 2**31)))
+        self.trajectory = []
+        c = self.cfg
+        self._fused_cfg = fused.FusedConfig(
+            motion_window=c.motion_window, motion_window_retry=c.motion_window_retry,
+            local_window=c.local_window, th_high=c.th_high,
+            min_motion_matches=c.min_motion_matches)
+        self._local_ids = None
+        self._seen_big = -1
+        self.lock = NULL_LOCK
+        self.worker = None
+        self.localization_only = False
+
+    def _t(self, x, dtype=torch.float32):
+        """Host array -> tensor on the tracker's device (float32 boundary)."""
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def reset_for_new_map(self, store: MapStore):
+        self.store = store
+        self.state = NOT_INITIALIZED
+        self.last_frame = None
+        self.init_ref = None
+        self.velocity = None
+        self.ref_kf = -1
+        self.frames_since_kf = 0
+        self.frames_lost = 0
+        self.n_inliers = 0
+        self._seen_big = -1
+        self._local_ids = None
+
+    # ------------------------------------------------------------------
+    def track(self, feats: Features, timestamp, depth=None, imu=None, right=None):
+        """Main entry. Returns (state, R, t); the pose may be None."""
+        if depth is not None or right is not None:
+            raise NotImplementedError(
+                "stereo / RGB-D tracking is ROADMAP.md Queue 1 item 16")
+        if imu is not None:
+            raise NotImplementedError(
+                "visual-inertial tracking is ROADMAP.md Queue 1 item 15")
+        with self.lock:
+            return self._track(feats, timestamp)
+
+    def _track(self, feats, timestamp):
+        big = self.store.big_change_idx
+        if big != self._seen_big:
+            if self._seen_big >= 0:
+                self.velocity = None
+            self._seen_big = big
+        frame = Frame(feats=feats, timestamp=timestamp)
+        if self.last_frame is not None and self.state == OK:
+            dt = timestamp - self.last_frame.timestamp
+            if dt < 0 or dt > 5.0:  # timestamp-jump guard (Tracking.cc:1122)
+                self.state = LOST
+                self.frame_id += 1
+                return self.state, None, None
+        if self.state == NOT_INITIALIZED:
+            self._monocular_initialization(frame)
+        elif self.state == OK:
+            handled = self._track_fused(frame)
+            if not handled:
+                if self._track_frame(frame):
+                    self._track_local_map(frame)
+                else:
+                    frame.R = None
+                    frame.t = None
+            if frame.R is None:
+                self._on_tracking_failure()
+            else:
+                if not self.localization_only and self._need_new_keyframe(frame):
+                    self._create_keyframe(frame)
+                self.last_frame = frame
+        elif self.state == RECENTLY_LOST:
+            if self._relocalize(frame):  # raises: relocalization is a later slice
+                self.state = OK
+        if frame.R is not None:
+            self.trajectory.append(self._traj_entry(frame, timestamp))
+        self.frame_id += 1
+        return self.state, frame.R, frame.t
+
+    def _traj_entry(self, frame, timestamp) -> TrajEntry:
+        store = self.store
+        e = TrajEntry(timestamp, frame.R.copy(), frame.t.copy())
+        k = self.ref_kf
+        if k >= 0 and store.kf_valid[k]:
+            R_rel = frame.R @ store.kf_R[k].T
+            e.store = store
+            e.ref_uid = int(store.kf_uid[k])
+            e.R_rel = R_rel
+            e.t_rel = frame.t - R_rel @ store.kf_t[k]
+        return e
+
+    def _on_tracking_failure(self):
+        if self.store.kf_valid.sum() > self.cfg.mature_map_kfs:
+            self.state = RECENTLY_LOST
+            self.frames_lost = 0
+        else:
+            self.state = LOST
+
+    # ------------------------------------------------------------------
+    # initialization
+    # ------------------------------------------------------------------
+    def _monocular_initialization(self, frame: Frame):
+        cfg = self.cfg
+        if self.init_ref is None or self.init_ref.n_feats < cfg.min_init_matches:
+            self.init_ref = frame
+            return
+        ref = self.init_ref
+        rf, ff = ref.feats, frame.feats
+        idx, _ = search.search_for_initialization(
+            rf.xy, rf.desc, rf.mask, ff.xy, ff.desc, ff.mask,
+            window=cfg.init_window, max_dist=cfg.init_match_max_dist,
+            ratio=cfg.init_match_ratio)
+        idx = idx.cpu().numpy()
+        n_matches = int((idx >= 0).sum())
+        if n_matches < cfg.min_init_matches:
+            self.init_ref = frame
+            return
+
+        slots1 = np.nonzero(idx >= 0)[0]
+        slots2 = idx[slots1]
+        xn1 = self.cam.unproject(rf.xy)[:, :2].cpu().numpy()
+        xn2 = self.cam.unproject(ff.xy)[:, :2].cpu().numpy()
+        N = len(idx)
+        m1 = np.zeros((N, 2), np.float32)
+        m2 = np.zeros((N, 2), np.float32)
+        m1[: len(slots1)] = xn1[slots1]
+        m2[: len(slots1)] = xn2[slots2]
+        mask = self._t(np.arange(N) < len(slots1), torch.bool)
+        samples = twoview.draw_samples(mask, 200, self._gen)
+        res = twoview.reconstruct_two_views(self._t(m1), self._t(m2), mask, samples,
+                                            1.0 / self.cam.fx)
+        res = {k: v.cpu().numpy() for k, v in res.items()}
+        if (not bool(res["ok"]) or int(res["n_good"]) < cfg.min_init_points
+                or float(res["med_parallax_deg"]) < cfg.min_init_med_parallax_deg):
+            return
+        self._create_initial_map(ref, frame, slots1, slots2, res["good"],
+                                 res["R21"], res["t21"], res["points"])
+
+    def _create_initial_map(self, ref, frame, slots1, slots2, good, R21, t21, p3d):
+        """CreateInitialMapMonocular: two KFs, points, init BA, median-depth
+        scale normalization."""
+        store = self.store
+        g = np.nonzero(good[: len(slots1)])[0]
+        pts = p3d[g]
+        s1 = slots1[g]
+        s2 = slots2[g]
+        d = ref.host.desc[s1] + frame.host.desc[s2]
+        d /= np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-12)
+
+        kf0 = store.add_keyframe(np.eye(3), np.zeros(3), ref.host, ref.timestamp)
+        kf1 = store.add_keyframe(R21, t21, frame.host, frame.timestamp)
+        ids = store.add_points(pts, d, first_kf=kf0)
+        store.assign_observations(kf0, s1, ids)
+        store.assign_observations(kf1, s2, ids)
+        store.update_covisibility(kf1)
+        if self.mapper is not None:
+            self.mapper.initial_ba(kf0, kf1)
+        depths = (store.mp_pos[ids] @ store.kf_R[kf0].T + store.kf_t[kf0])[:, 2]
+        med = float(np.median(depths))
+        if med <= 0:  # degenerate init; roll back
+            store.remove_points(ids)
+            store.remove_keyframe(kf0)
+            store.remove_keyframe(kf1)
+            return
+        store.kf_t[kf1] /= med
+        store.mp_pos[ids] /= med
+        store.mark_points_dirty(ids)
+
+        frame.R = store.kf_R[kf1].copy()
+        frame.t = store.kf_t[kf1].copy()
+        obs = np.full(len(frame.host.mask), -1, np.int32)
+        obs[s2] = ids
+        frame.obs = obs
+        self.ref_kf = kf1
+        self.last_frame = frame
+        self.velocity = None
+        self.frames_since_kf = 0
+        self.state = OK
+
+    # ------------------------------------------------------------------
+    # per-frame tracking
+    # ------------------------------------------------------------------
+    def _predicted_pose(self):
+        R_l, t_l = self.last_frame.R, self.last_frame.t
+        if self.velocity is None:
+            return R_l.copy(), t_l.copy()
+        R_v, t_v = self.velocity
+        return R_v @ R_l, R_v @ t_l + t_v
+
+    def _revalidate_obs(self, obs):
+        store = self.store
+        return np.where((obs >= 0) & store.mp_valid[np.clip(obs, 0, store.m_max - 1)],
+                        obs, -1).astype(np.int32)
+
+    def _pose_optimize_frame(self, frame, R0, t0):
+        """Pose-only optimization over frame.obs. Returns the inlier count."""
+        store = self.store
+        obs = frame.obs
+        valid = (obs >= 0) & frame.host.mask
+        pts = store.mp_pos[np.clip(obs, 0, store.m_max - 1)]
+        inv_sigma2 = 1.0 / (1.2 ** (2.0 * frame.host.octave))
+        res = pose_opt.pose_optimize(
+            self.cam.kind, self.cam.params, self._t(R0), self._t(t0), self._t(pts),
+            frame.feats.xy, self._t(inv_sigma2), self._t(valid, torch.bool))
+        frame.R = res["R"].cpu().numpy()
+        frame.t = res["t"].cpu().numpy()
+        inlier = res["inlier"].cpu().numpy()
+        frame.obs = self._revalidate_obs(np.where(inlier, obs, -1))
+        return int(inlier.sum())
+
+    def _track_frame(self, frame) -> bool:
+        ok = self._track_with_motion_model(frame)
+        if not ok:
+            ok = self._track_reference_keyframe(frame)
+        return ok
+
+    def _track_with_motion_model(self, frame) -> bool:
+        cfg = self.cfg
+        store = self.store
+        R0, t0 = self._predicted_pose()
+        last_obs = self.last_frame.obs
+        mp_ids = np.unique(last_obs[last_obs >= 0])
+        mp_ids = mp_ids[store.mp_valid[mp_ids]]
+        if len(mp_ids) < 3:
+            return False
+        cap = cfg.local_mp_cap
+        mp_pos, mp_desc, mp_valid, mp_ids_p = self._pad_mps(mp_ids, cap)
+        f = frame.feats
+        for radius in (cfg.motion_window, cfg.motion_window_retry):
+            idx, _, _ = search.search_by_projection(
+                self.cam.kind, self.cam.params, (self.cam.width, self.cam.height),
+                self._t(R0), self._t(t0), mp_pos, mp_desc, mp_valid,
+                f.xy, f.desc, f.octave, f.mask, radius=radius, max_dist=cfg.th_high)
+            idx = idx.cpu().numpy()
+            n = int((idx >= 0).sum())
+            if n >= cfg.min_motion_matches:
+                break
+        if n < cfg.min_motion_matches:
+            return False
+        frame.obs = self._revalidate_obs(
+            np.where(idx >= 0, mp_ids_p[np.clip(idx, 0, cap - 1)], -1))
+        n_in = self._pose_optimize_frame(frame, R0, t0)
+        self.n_inliers = n_in
+        return n_in >= cfg.min_pose_inliers
+
+    def _track_reference_keyframe(self, frame) -> bool:
+        """TrackReferenceKeyFrame: brute-force mutual matching of the frame
+        against the reference keyframe's observed slots (the row_top2 kernel
+        on CUDA), then pose optimization from the last pose."""
+        cfg = self.cfg
+        store = self.store
+        k = self.ref_kf
+        if k < 0 or not store.kf_valid[k]:
+            return False
+        kf_obs = store.kf_obs[k].copy()
+        maskB = (kf_obs >= 0) & store.kf_mask[k]
+        idx, _ = search.search_brute_force(
+            frame.feats.desc, frame.feats.mask, self._t(store.kf_desc[k]),
+            self._t(maskB, torch.bool), max_dist=cfg.th_low, ratio=0.9)
+        idx = idx.cpu().numpy()
+        if int((idx >= 0).sum()) < cfg.min_ref_matches:
+            return False
+        frame.obs = self._revalidate_obs(np.where(
+            idx >= 0, kf_obs[np.clip(idx, 0, len(kf_obs) - 1)], -1))
+        n_in = self._pose_optimize_frame(frame, self.last_frame.R, self.last_frame.t)
+        self.n_inliers = n_in
+        return n_in >= cfg.min_pose_inliers
+
+    # ------------------------------------------------------------------
+    # fused fast path (slam/fused.py)
+    # ------------------------------------------------------------------
+    def _track_fused(self, frame) -> bool:
+        """Motion search -> pose LM -> local search -> pose LM on the device.
+        True when this path handled the frame (success, or a definitive
+        failure with frame.R = None); False hands the frame to the staged
+        fallbacks (TrackReferenceKeyFrame)."""
+        cfg = self.cfg
+        store = self.store
+        if self.last_frame is None or self.last_frame.obs is None:
+            return False
+        last_obs = self.last_frame.obs
+        mp_ids = np.unique(last_obs[last_obs >= 0])
+        mp_ids = mp_ids[store.mp_valid[mp_ids]]
+        if len(mp_ids) < 3:
+            return False
+        if self._local_ids is None:
+            self._update_local_set(last_obs)
+            if self._local_ids is None:
+                return False
+        R0, t0 = self._predicted_pose()
+        dm = fused.get_device_map(store, self.device)
+        dm.sync()
+        motion_ids = np.full(store.n_slots, -1, np.int64)
+        n_m = min(len(mp_ids), store.n_slots)
+        motion_ids[:n_m] = mp_ids[:n_m]
+        zeros = torch.zeros(store.n_slots, dtype=torch.float32, device=self.device)
+        f = frame.feats
+        out = fused.track_step(
+            self.cam.kind, self.cam.params, float(self.cam.width), float(self.cam.height),
+            self._t(R0), self._t(t0), dm.pos, dm.desc, dm.normal, dm.dmin, dm.dmax,
+            dm.valid, self._t(motion_ids, torch.int64), self._t(self._local_ids, torch.int64),
+            f.xy, f.desc, f.octave, f.mask, zeros, zeros, self._fused_cfg)
+        out = {k: v.cpu().numpy() for k, v in out.items()}  # one host copy per frame
+        n1, n_in1, n_in2 = (int(x) for x in out["stats"])
+        if n1 < cfg.min_motion_matches or n_in1 < cfg.min_pose_inliers:
+            return False  # staged fallbacks (ref-KF brute force) take over
+
+        frame.R = out["R"]
+        frame.t = out["t"]
+        frame.obs = self._revalidate_obs(out["obs"])
+        self.n_inliers = n_in2
+        vis = out["vis_local"]
+        lids = self._local_ids
+        store.mp_visible[lids[(lids >= 0) & vis]] += 1
+        obs1 = out["obs1"]
+        store.mp_visible[np.unique(obs1[obs1 >= 0])] += 1
+        store.mp_found[frame.obs[frame.obs >= 0]] += 1
+
+        if n_in2 < cfg.min_local_inliers and n_in2 < cfg.min_pose_inliers:
+            frame.R = None
+            frame.t = None
+            return True
+        R_l, t_l = self.last_frame.R, self.last_frame.t
+        R_v = _orthonormalize_np(frame.R @ R_l.T)
+        self.velocity = (R_v, frame.t - R_v @ t_l)
+        self._update_local_set(frame.obs)
+        return True
+
+    def _update_local_set(self, obs):
+        """Local-map candidate ids for the next fused frame
+        (UpdateLocalKeyFrames/Points) and the reference keyframe refresh."""
+        store = self.store
+        matched = np.unique(obs[obs >= 0])
+        matched = matched[store.mp_valid[matched]]
+        if len(matched) == 0:
+            self._local_ids = None
+            return
+        kf_ids, _, _ = store.observing_slots(matched)
+        if len(kf_ids) == 0:
+            self._local_ids = None
+            return
+        counts = np.bincount(kf_ids, minlength=store.k_max)
+        local_kfs = np.nonzero(counts)[0]
+        self.ref_kf = int(local_kfs[np.argmax(counts[local_kfs])])
+        extra = []
+        for k in local_kfs[np.argsort(-counts[local_kfs])][:10]:
+            extra.extend(store.covisible_kfs(k, n=10, min_weight=15))
+        if extra:
+            local_kfs = np.unique(np.concatenate([local_kfs, np.asarray(extra, int)]))
+        local_mps = store.points_seen_by(local_kfs)
+        cap = self.cfg.local_mp_cap
+        ids = np.full(cap, -1, np.int32)
+        n = min(len(local_mps), cap)
+        ids[:n] = local_mps[:n]
+        self._local_ids = ids
+
+    def _relocalize(self, frame) -> bool:
+        raise NotImplementedError(
+            "tracking lost on a mature map: relocalization (place recognition + "
+            "PnP RANSAC) is ROADMAP.md Queue 1 item 14, not yet ported")
+
+    def _pad_mps(self, mp_ids, cap, with_stats=False):
+        store = self.store
+        mp_ids = mp_ids[:cap]
+        n = len(mp_ids)
+        pos = np.zeros((cap, 3), np.float32)
+        desc = np.zeros((cap, store.desc_dim), np.float32)
+        valid = np.zeros(cap, bool)
+        pos[:n] = store.mp_pos[mp_ids]
+        desc[:n] = store.mp_desc[mp_ids]
+        valid[:n] = True
+        ids_p = np.full(cap, -1, np.int32)
+        ids_p[:n] = mp_ids
+        out = (self._t(pos), self._t(desc), self._t(valid, torch.bool), ids_p)
+        if not with_stats:
+            return out
+        normal = np.zeros((cap, 3), np.float32)
+        dmin = np.zeros(cap, np.float32)
+        dmax = np.zeros(cap, np.float32)
+        normal[:n] = store.mp_normal[mp_ids]
+        dmin[:n] = store.mp_dmin[mp_ids]
+        dmax[:n] = store.mp_dmax[mp_ids]
+        return out + (self._t(normal), self._t(dmin), self._t(dmax))
+
+    def _track_local_map(self, frame):
+        """UpdateLocalMap + SearchLocalPoints + final pose opt."""
+        cfg = self.cfg
+        store = self.store
+        matched = frame.obs[frame.obs >= 0]
+        if len(matched) == 0:
+            return
+        kf_ids, _, _ = store.observing_slots(np.unique(matched))
+        if len(kf_ids) == 0:
+            return
+        counts = np.bincount(kf_ids, minlength=store.k_max)
+        local_kfs = np.nonzero(counts)[0]
+        self.ref_kf = int(local_kfs[np.argmax(counts[local_kfs])])
+        extra = []
+        for k in local_kfs[np.argsort(-counts[local_kfs])][:10]:
+            extra.extend(store.covisible_kfs(k, n=10, min_weight=15))
+        if extra:
+            local_kfs = np.unique(np.concatenate([local_kfs, np.asarray(extra, int)]))
+        local_mps = store.points_seen_by(local_kfs)
+        local_mps = local_mps[~np.isin(local_mps, matched)]
+        if len(local_mps) > 0:
+            cap = cfg.local_mp_cap
+            (mp_pos, mp_desc, mp_valid, ids_p, mp_normal, mp_dmin,
+             mp_dmax) = self._pad_mps(local_mps, cap, with_stats=True)
+            f = frame.feats
+            idx, _, proj_ok = search.search_by_projection(
+                self.cam.kind, self.cam.params, (self.cam.width, self.cam.height),
+                self._t(frame.R), self._t(frame.t), mp_pos, mp_desc, mp_valid,
+                f.xy, f.desc, f.octave, f.mask, radius=cfg.local_window,
+                max_dist=cfg.th_high, ratio=1.0, mp_normal=mp_normal,
+                mp_dmin=mp_dmin, mp_dmax=mp_dmax)
+            idx, proj_ok = idx.cpu().numpy(), proj_ok.cpu().numpy()
+            vis_ids = ids_p[proj_ok[: len(ids_p)] & (ids_p >= 0)]
+            store.mp_visible[vis_ids[store.mp_valid[vis_ids]]] += 1
+            new = (idx >= 0) & (frame.obs < 0)
+            frame.obs = self._revalidate_obs(np.where(
+                new, ids_p[np.clip(idx, 0, cap - 1)], frame.obs))
+
+        n_in = self._pose_optimize_frame(frame, frame.R, frame.t)
+        self.n_inliers = n_in
+        store.mp_found[frame.obs[frame.obs >= 0]] += 1
+        store.mp_visible[np.unique(matched)] += 1
+        if n_in < cfg.min_local_inliers and n_in < cfg.min_pose_inliers:
+            frame.R = None
+            frame.t = None
+            return
+        # motion model, re-orthonormalized (see lie.orthonormalize)
+        Rl_inv, tl_inv = lie.se3_inverse(torch.from_numpy(self.last_frame.R),
+                                         torch.from_numpy(self.last_frame.t))
+        R_v, t_v = lie.se3_mul(torch.from_numpy(frame.R), torch.from_numpy(frame.t),
+                               Rl_inv, tl_inv)
+        self.velocity = (lie.orthonormalize(R_v).numpy(), t_v.numpy())
+
+    # ------------------------------------------------------------------
+    # keyframe policy (monocular conditions of Tracking::NeedNewKeyFrame)
+    # ------------------------------------------------------------------
+    def _need_new_keyframe(self, frame) -> bool:
+        cfg = self.cfg
+        store = self.store
+        self.frames_since_kf += 1
+        if self.ref_kf < 0:
+            return False
+        n_kfs = int(store.kf_valid.sum())
+        min_obs = 3 if n_kfs > 2 else 2
+        ref_mp = store.kf_obs[self.ref_kf]
+        ref_mp = ref_mp[ref_mp >= 0]
+        n_ref = int((store.mp_obs_count[ref_mp] >= min_obs).sum())
+        mapper_idle = self.worker is None or self.worker.queue_size() < 2
+        th_ref = cfg.kf_ref_ratio if n_kfs >= 2 else 0.4
+        c1a = self.frames_since_kf >= cfg.max_frames_between_kf
+        c1b = self.frames_since_kf >= cfg.min_frames_between_kf and mapper_idle
+        c2 = self.n_inliers < th_ref * n_ref and self.n_inliers > 15
+        if not ((c1a or c1b) and c2):
+            return False
+        if mapper_idle:
+            return True
+        if self.mapper is not None:
+            self.mapper.abort_ba = True
+        return self.worker is not None and self.worker.queue_size() < 3
+
+    def _create_keyframe(self, frame):
+        store = self.store
+        k = store.add_keyframe(frame.R, frame.t, frame.host, frame.timestamp, obs=frame.obs)
+        self.ref_kf = k
+        self.frames_since_kf = 0
+        self._local_ids = None
+        if self.mapper is not None:
+            self.mapper.process_keyframe(k)
+            # tracking continues from the BA-refined keyframe pose
+            frame.R = store.kf_R[k].copy()
+            frame.t = store.kf_t[k].copy()
+            frame.obs = store.kf_obs[k].copy()

@@ -32,3 +32,6 @@ def pytest_configure(config):
         "markers",
         "slow: heavy e2e tier (~8 min). Default run: pytest -m 'not slow' "
         "(<5 min); slow tier: pytest -m slow")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card; skips without one (README: the port)")

@@ -1,0 +1,90 @@
+"""The hand-written row_top2 kernel against its plain version, on the card.
+
+These tests need an NVIDIA card (marker `cuda`) and skip without one. The
+file imports neither jax nor hfnet_slam_tpu, so it runs on the GPU machine,
+which has no jax, without the suite's conftest:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: idx and gated match indices exactly; best and second 1e-5
+(float32 over <= 256 unit-norm terms, summed in another order).
+chip_smoke.py holds the kernel to the same rules at the slice's shapes."""
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from hfnet_slam_torch.ops import bf_match as B  # noqa: E402
+from hfnet_slam_torch.ops import matching as M  # noqa: E402
+from hfnet_slam_torch.slam import search as S  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_cuda.py on the GPU")
+    return torch.device("cuda")
+
+
+def _unit(g, n, d):
+    return torch.nn.functional.normalize(torch.randn(n, d, device="cuda", generator=g), dim=1)
+
+
+def _problem(NA, NB, D, seed=0):
+    """A rows with noisy copies in B, a tenth of B masked."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    A, Bm = _unit(g, NA, D), _unit(g, NB, D)
+    n = min(NA, NB) // 4
+    Bm[:n] = torch.nn.functional.normalize(
+        A[:n] + 0.03 * torch.randn(n, D, device="cuda", generator=g), dim=1)
+    return A, Bm, torch.rand(NB, device="cuda", generator=g) > 0.1
+
+
+def _assert_same(A, Bm, m):
+    best, second, idx = B.row_top2(A, Bm, m)
+    rb, rs, ri = B.row_top2_reference(A, Bm, m)
+    assert torch.equal(idx, ri)
+    assert float((best - rb).abs().max()) <= 1e-5
+    assert float((second - rs).abs().max()) <= 1e-5
+    return best, second, idx
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024, 256), (1000, 777, 256), (130, 4097, 64),
+                                   (1024, 8192, 256), (37, 1, 16)])
+def test_kernel_matches_plain(cuda, shape):
+    A, Bm, m = _problem(*shape)
+    before = B.launches
+    _assert_same(A, Bm, m)
+    assert B.launches == before + 1
+
+
+def test_kernel_exact_ties_and_all_masked(cuda):
+    A, Bm, _ = _problem(512, 700, 256, seed=1)
+    Bm[300] = Bm[5]
+    Bm[650] = Bm[5]
+    A[:3] = Bm[5]
+    ones = torch.ones(700, dtype=torch.bool, device=cuda)
+    best, second, idx = _assert_same(A, Bm, ones)
+    assert int(idx[0]) == 5 and float(best[0]) == float(second[0])
+    best, second, idx = _assert_same(A, Bm, ~ones)
+    assert bool((best == -1e9).all() & (second == -1e9).all() & (idx == 0).all())
+
+
+def test_gated_matcher_matches_plain_matcher(cuda):
+    A, Bm, mB = _problem(1024, 1024, 256, seed=2)
+    mA = torch.rand(1024, device=cuda) > 0.1
+    before = B.launches
+    iK, dK = S.search_brute_force(A, mA, Bm, mB, max_dist=0.6, ratio=0.9)
+    assert B.launches == before + 2  # forward and swapped, for the mutual check
+    iP, dP = M.match_descriptors(A, mA, Bm, mB, max_dist=0.6, ratio=0.9, mutual=True)
+    assert torch.equal(iK, iP) and int((iK >= 0).sum()) > 100
+    assert float((dK - dP).abs().max()) <= 1e-4
+
+
+def test_kernel_rejects_non_contiguous(cuda):
+    A, Bm, m = _problem(64, 64, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        B.row_top2(A.t().contiguous().t(), Bm, m)

@@ -1,0 +1,50 @@
+"""The port imports neither jax nor any module of the JAX reference.
+
+Checked in a fresh interpreter: this test process has jax loaded already
+(tests/conftest.py)."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import hfnet_slam_torch
+names = [m.name for m in pkgutil.walk_packages(hfnet_slam_torch.__path__, "hfnet_slam_torch.")]
+for n in names:
+    importlib.import_module(n)
+{extra}
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "hfnet_slam_tpu"))
+print(len(names), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def _run(extra=""):
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
+    return subprocess.run([sys.executable, "-c", _PROBE.format(extra=extra)], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+
+
+def test_every_port_module_imports_without_jax():
+    r = _run()
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20, r.stdout  # every subpackage was walked
+
+
+def test_chip_smoke_imports_without_jax():
+    r = _run("import chip_smoke")
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_card_tests_import_without_jax():
+    """tests/test_torch_cuda.py runs on the GPU machine, which has no jax."""
+    r = _run("sys.path.insert(0, 'tests'); import test_torch_cuda")
+    assert r.returncode == 0, r.stdout + r.stderr

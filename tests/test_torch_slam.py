@@ -1,0 +1,133 @@
+"""The port's monocular SLAM slice end to end against the JAX reference
+(port on the CPU), and the port's entry-point contract.
+
+The whole-slice test runs the browse trajectory at tests/test_fused.py size
+(512 slots, 64-d) for 60 frames with a 0.1 rad camera jolt from frame 40 on,
+which sends both packages through reference-keyframe tracking (the
+brute-force matcher). Tolerances: first tracked frame within +-1 and the
+tracked count within +-2 (the RANSAC samples come from different
+generators); port ATE <= max(2 x reference ATE, 0.01 m); fake-extractor
+outputs bit-identical."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from _torch_parity import browse_pose, build, run  # noqa: E402
+from hfnet_slam_torch.evaluation import ate  # noqa: E402
+from hfnet_slam_torch.slam import search as TS  # noqa: E402
+
+
+def test_fake_extractor_is_bit_identical():
+    _, ext_j = build("tpu")
+    _, ext_t = build("torch", device="cpu")
+    for i in (0, 17, 44, 45):
+        R, t = browse_pose(i, jolt_at=40)
+        fj, ft = ext_j(R, t), ext_t(R, t)
+        np.testing.assert_array_equal(ext_t.last_ids, ext_j.last_ids)
+        for name in fj._fields:
+            a, b = getattr(ft, name).numpy(), np.asarray(getattr(fj, name))
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_whole_slice_matches_reference_through_a_jolt(monkeypatch):
+    from hfnet_slam_tpu.slam.tracking import OK as J_OK
+    from hfnet_slam_torch.slam.tracking import OK as T_OK
+
+    sys_j, ext_j = build("tpu")
+    est_j, gt_j, ids_j = run(sys_j, ext_j, 0, 60, jolt_at=40)
+
+    calls = []
+    real = TS.search_brute_force
+
+    def spy(*a, **kw):
+        calls.append(a[0].device.type)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(TS, "search_brute_force", spy)
+    sys_t, ext_t = build("torch", device="cpu")
+    est_t, gt_t, ids_t = run(sys_t, ext_t, 0, 60, jolt_at=40)
+
+    assert sys_j.tracker.state == J_OK and sys_t.tracker.state == T_OK
+    assert abs(ids_t[0] - ids_j[0]) <= 1
+    assert abs(len(ids_t) - len(ids_j)) <= 2
+    assert calls and set(calls) == {"cpu"}  # reference-keyframe tracking ran
+    ate_j = ate.ate_rmse(est_j, gt_j, with_scale=True)
+    ate_t = ate.ate_rmse(est_t, gt_t, with_scale=True)
+    assert np.isfinite(est_t).all()
+    assert ate_t <= max(2 * ate_j, 0.01), (ate_t, ate_j)
+    s = sys_t.store
+    assert np.isfinite(s.mp_pos[s.mp_valid]).all()
+    # the map mirrors live on the system's device
+    assert s._device_map.pos.device.type == "cpu" and s._kf_bank.desc.device.type == "cpu"
+
+
+def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
+    from hfnet_slam_torch import device as D
+    from hfnet_slam_torch.geometry import cameras
+    from hfnet_slam_torch.slam.local_mapping import LocalMapper
+    from hfnet_slam_torch.slam.map import MapStore
+    from hfnet_slam_torch.slam.system import SLAMSystem, SystemConfig
+    from hfnet_slam_torch.slam.tracking import Tracker
+
+    cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
+    store = MapStore(8, 64, 16, 8, 8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # every public constructor: device None means CUDA, and raises here
+    for make in (lambda: build("torch", device=None),
+                 lambda: SLAMSystem(cam, None, SystemConfig(loop_closing=False)),
+                 lambda: Tracker(cam, store),
+                 lambda: LocalMapper(cam, store),
+                 lambda: cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480),
+                 lambda: cameras.kb8(190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, 512, 512)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        D.resolve("cuda")
+    assert D.resolve("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("loop_closing", True, "item 14"),
+    ("async_mapping", True, "item 14"),
+    ("baseline", 0.1, "item 16"),
+])
+def test_out_of_slice_configs_raise(field, value, item):
+    from hfnet_slam_torch.geometry import cameras
+    from hfnet_slam_torch.slam.system import SLAMSystem, SystemConfig
+
+    cfg = SystemConfig(k_max=8, m_max=64, n_slots=16, desc_dim=8, gdesc_dim=8,
+                       loop_closing=False)
+    setattr(cfg, field, value)
+    with pytest.raises(NotImplementedError, match=item):
+        SLAMSystem(cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu"), None, cfg,
+                   device="cpu")
+
+
+def test_imu_and_stereo_entry_points_raise():
+    sys_t, _ = build("torch", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        sys_t.track_monocular_inertial(None, 0.0, np.zeros((1, 7)))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        sys_t.track_stereo(None, None, 0.0)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        sys_t.tracker._relocalize(None)
+
+
+def test_save_and_load_map_round_trip(tmp_path):
+    sys_t, ext = build("torch", device="cpu")
+    run(sys_t, ext, 0, 20)
+    assert sys_t.store.kf_valid.sum() >= 2
+    path = str(tmp_path / "map.npz")
+    sys_t.save_map(path)
+    fresh, _ = build("torch", device="cpu")
+    fresh.load_map(path)
+    for f in ("kf_R", "kf_obs", "mp_pos", "mp_desc", "mp_valid", "covis"):
+        np.testing.assert_array_equal(getattr(fresh.store, f), getattr(sys_t.store, f))
+    assert fresh.tracker.store is fresh.store and fresh.mapper.store is fresh.store
+    # the reference reads the port's snapshot
+    from hfnet_slam_tpu.slam.map import MapStore as JMapStore
+
+    np.testing.assert_array_equal(JMapStore.load(path).mp_pos, sys_t.store.mp_pos)
