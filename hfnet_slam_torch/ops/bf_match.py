@@ -7,7 +7,9 @@ Pallas TPU kernel) and its gated wrapper match_descriptors_fused.
 Routing: a CUDA tensor goes to the kernel (or the wrapper raises); a CPU
 tensor goes to `row_top2_reference`. There is no fallback from one to the
 other. The kernel is built with nvcc for sm_90a at first use into the
-package's build directory and bound through ctypes with a plain C interface.
+package's build directory and bound through ctypes with a plain C interface;
+it finds libcuda's TMA descriptor encoder (cuTensorMapEncodeTiled) through
+the CUDA runtime's entry-point query, so the library does not link libcuda.
 """
 from __future__ import annotations
 
@@ -25,57 +27,101 @@ _NEG = -1e9
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "row_top2.cu")
 _LIB_PATH = os.path.join(D.BUILD_DIR, "librow_top2.so")
+_NO_ENCODER = -1000000  # row_top2_launch: cuTensorMapEncodeTiled not found
 
-# kernel launches made by row_top2 on CUDA tensors (one per wrapper call,
-# which runs the partial and the merge kernel); reset by callers that count
+# kernel launches made by row_top2 on CUDA tensors (one per wrapper call);
+# reset by callers that count
 launches = 0
 
 _lib = None
 _lib_lock = threading.Lock()
-_nsplits: dict = {}  # (device index, NA, NB) -> column splits of one launch
+# (device index, stream, NA, NB) -> (column splits, scratch or None); a
+# scratch is reused only on its own stream, where calls are ordered
+_plans: dict = {}
 
 
 def nvcc_command(src=_SRC, out=_LIB_PATH):
     nvcc = shutil.which("nvcc") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-o", out, src]
+            "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", out, src]
 
 
 def build(force: bool = False) -> str:
     """Compile the kernel library if it is missing or older than its source.
-    Returns the library path; raises CalledProcessError with nvcc's output on
-    a compile error."""
+    Returns the library path; raises RuntimeError with nvcc's output on a
+    compile error. ptxas's report (registers, shared memory, spills of each
+    kernel) is kept beside the library, see `ptxas_report`."""
     if force or not os.path.exists(_LIB_PATH) or \
             os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC):
         os.makedirs(D.BUILD_DIR, exist_ok=True)
         tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-        subprocess.run(nvcc_command(out=tmp), check=True, capture_output=True, text=True)
+        r = subprocess.run(nvcc_command(out=tmp), capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({r.returncode}) on {_SRC}:\n{r.stdout}{r.stderr}")
+        with open(_LIB_PATH + ".ptxas.txt", "w") as f:
+            f.write(r.stdout + r.stderr)
         os.replace(tmp, _LIB_PATH)
     return _LIB_PATH
+
+
+def ptxas_report() -> list:
+    """ptxas's report of the last build: per kernel, the line naming it, its
+    stack and spills, and its registers; and any performance remark."""
+    with open(_LIB_PATH + ".ptxas.txt") as f:
+        return [ln.strip() for ln in f
+                if any(k in ln for k in ("Compiling entry", "spill", "Used", "Performance"))]
+
+
+def bind(path):
+    """The kernel library at `path` with its C interface declared."""
+    lib = ctypes.CDLL(path)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.row_top2_nsplit.argtypes = [i, i, i]
+    lib.row_top2_nsplit.restype = i
+    lib.row_top2_scratch_words.argtypes = [i, i]
+    lib.row_top2_scratch_words.restype = ctypes.c_longlong
+    lib.row_top2_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, i, p]
+    lib.row_top2_launch.restype = i
+    lib.row_top2_error_string.argtypes = [i]
+    lib.row_top2_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.row_top2_nsplit.argtypes = [i, i, i]
-            lib.row_top2_nsplit.restype = i
-            lib.row_top2_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, p]
-            lib.row_top2_launch.restype = i
-            _lib = lib
+            _lib = bind(build())
     return _lib
 
 
-def _nsplit(lib, NA, NB) -> int:
-    """Column splits of one launch on the current device, cached per shape."""
-    key = (torch.cuda.current_device(), NA, NB)
-    if key not in _nsplits:
-        n_sm = torch.cuda.get_device_properties(key[0]).multi_processor_count
-        _nsplits[key] = lib.row_top2_nsplit(NA, NB, n_sm)
-    return _nsplits[key]
+def _plan(lib, dev, stream, NA, NB):
+    """Column splits of one launch and the scratch for their partial
+    (best, second, idx) states and merge tickets, cached per device, stream
+    and shape. The kernel leaves the tickets at zero, as it finds them."""
+    key = (dev.index, stream, NA, NB)
+    plan = _plans.get(key)
+    capturing = torch.cuda.is_current_stream_capturing()
+    if plan is None or (capturing and plan[1] is not None):
+        nsplit = plan[0] if plan else lib.row_top2_nsplit(
+            NA, NB, torch.cuda.get_device_properties(dev).multi_processor_count)
+        words = lib.row_top2_scratch_words(NA, nsplit)
+        scratch = torch.zeros(words, dtype=torch.int32, device=dev) if words else None
+        plan = (nsplit, scratch)
+        if not capturing:  # a graph owns the scratch it captured: replays may
+            _plans[key] = plan  # run on any stream
+    return plan
+
+
+def _tma_ready(x, ld):
+    """x itself when TMA can read it (16-byte-aligned base, rows of ld
+    floats), else a copy into an aligned (N, ld) buffer, zero-padded."""
+    if x.shape[1] == ld and x.data_ptr() % 16 == 0:
+        return x
+    y = torch.zeros((x.shape[0], ld), dtype=x.dtype, device=x.device)
+    y[:, :x.shape[1]] = x
+    return y
 
 
 def row_top2_reference(dA, dB, maskB):
@@ -114,25 +160,27 @@ def row_top2(dA, dB, maskB):
         raise ValueError(f"row_top2: unsupported device {dA.device}")
     if not (dA.is_contiguous() and dB.is_contiguous() and maskB.is_contiguous()):
         raise ValueError("row_top2: inputs must be contiguous")
-    lib = _load()
-    NA, Dd = dA.shape
-    NB = dB.shape[0]
-    with torch.cuda.device(dA.device):
-        nsplit = _nsplit(lib, NA, NB)
-        i32 = dict(dtype=torch.int32, device=dA.device)
-        # partial (best, second, idx) per (split, row) in one buffer; the two
-        # float planes are reinterpreted int32 storage
-        scratch = torch.empty((3, nsplit, NA), **i32)
-        sb, ss = scratch[0].view(torch.float32), scratch[1].view(torch.float32)
-        best = torch.empty(NA, dtype=torch.float32, device=dA.device)
-        second, idx = torch.empty_like(best), torch.empty(NA, **i32)
-        stream = torch.cuda.current_stream(dA.device).cuda_stream
-        err = lib.row_top2_launch(
-            dA.data_ptr(), dB.data_ptr(), maskB.data_ptr(), NA, NB, Dd, nsplit,
-            sb.data_ptr(), ss.data_ptr(), scratch[2].data_ptr(),
-            best.data_ptr(), second.data_ptr(), idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"row_top2 kernel launch failed: cudaError_t {err}")
+    lib = _lib or _load()
+    (NA, Dd), NB = dA.shape, dB.shape[0]
+    ld = (Dd + 3) // 4 * 4  # TMA: rows a multiple of 16 bytes
+    dA, dB = _tma_ready(dA, ld), _tma_ready(dB, ld)
+    dev = dA.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    nsplit, scratch = _plan(lib, dev, stream, NA, NB)
+    best = torch.empty(NA, dtype=torch.float32, device=dev)
+    second = torch.empty(NA, dtype=torch.float32, device=dev)
+    idx = torch.empty(NA, dtype=torch.int32, device=dev)
+    err = lib.row_top2_launch(
+        dA.data_ptr(), dB.data_ptr(), maskB.data_ptr(), NA, NB, ld, nsplit,
+        None if scratch is None else scratch.data_ptr(),
+        best.data_ptr(), second.data_ptr(), idx.data_ptr(), dev.index, stream)
+    if err > 0:
+        raise RuntimeError(f"row_top2 kernel launch failed: cudaError_t {err} "
+                           f"({lib.row_top2_error_string(err).decode()})")
+    if err == _NO_ENCODER:
+        raise RuntimeError("row_top2: libcuda offers no cuTensorMapEncodeTiled (CUDA >= 12)")
+    if err < 0:
+        raise RuntimeError(f"row_top2: cuTensorMapEncodeTiled failed: CUresult {-err}")
     launches += 1
     return best, second, idx
 

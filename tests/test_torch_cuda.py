@@ -53,11 +53,30 @@ def _assert_same(A, Bm, m):
 
 
 @pytest.mark.parametrize("shape", [(1024, 1024, 256), (1000, 777, 256), (130, 4097, 64),
-                                   (1024, 8192, 256), (37, 1, 16)])
+                                   (1024, 4096, 256), (4096, 1024, 256), (1024, 8192, 256),
+                                   (37, 1, 16), (100, 300, 13)])
 def test_kernel_matches_plain(cuda, shape):
     A, Bm, m = _problem(*shape)
     before = B.launches
     _assert_same(A, Bm, m)
+    assert B.launches == before + 1
+
+
+def test_kernel_takes_a_base_off_16_byte_alignment(cuda):
+    """TMA needs a 16-byte-aligned base: the wrapper copies such inputs into
+    an aligned buffer and still runs the kernel."""
+    A, Bm, m = _problem(1000, 777, 256, seed=3)
+
+    def off_by_4_bytes(x):
+        buf = torch.empty(x.numel() + 4, device=cuda)
+        off = (1 - buf.data_ptr() // 4) % 4
+        y = buf[off:off + x.numel()].view(x.shape)
+        y.copy_(x)
+        assert y.is_contiguous() and y.data_ptr() % 16 == 4
+        return y
+
+    before = B.launches
+    _assert_same(off_by_4_bytes(A), off_by_4_bytes(Bm), m)
     assert B.launches == before + 1
 
 

@@ -186,6 +186,19 @@ def test_row_top2_rejects_bad_inputs():
         TB.row_top2(a, a, torch.ones(4))
 
 
+def test_tma_ready_copies_only_what_tma_cannot_read():
+    """The kernel's TMA loads need a 16-byte-aligned base and rows of a
+    multiple of 4 floats; other inputs go through one zero-padded copy."""
+    buf = torch.arange(1 + 8 * 13, dtype=torch.float32)
+    x = buf[:8 * 12].view(8, 12)  # aligned, D % 4 == 0: used as it is
+    assert x.data_ptr() % 16 == 0 and TB._tma_ready(x, 12) is x
+    for y, ld in [(buf[1:1 + 8 * 12].view(8, 12), 12),  # base 4 bytes past alignment
+                  (buf[:8 * 13].view(8, 13), 16)]:      # D = 13
+        z = TB._tma_ready(y, ld)
+        assert z.shape == (8, ld) and z.data_ptr() % 16 == 0 and z.is_contiguous()
+        assert torch.equal(z[:, :y.shape[1]], y) and not z[:, y.shape[1]:].any()
+
+
 # -------------------------------------------------------------- searches ---
 def test_search_by_projection_and_initialization():
     rng = np.random.default_rng(9)
