@@ -14,14 +14,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      not 16-byte aligned, exact ties, an all-masked B and NB = 1, then the
      gated mutual matcher; times of the kernel, the plain version and a
      library yardstick at four shapes;
-  4. the slice: monocular SLAM on the synthetic browse trajectory at
+  4. browse: monocular SLAM on the synthetic browse trajectory at
      production widths (1024 slots, 256-d descriptors, 4096-d global
      descriptors), 120 frames, with a 0.1 rad camera jolt from frame 80 on
-     that sends tracking through the brute-force kernel.
-The line before the last is one JSON object describing every kernel; the
-last line is {"ok": true, "device": {...}}. Needs one CUDA card and no
-network. Without a card, or without the repository beside it, it exits
-non-zero before printing a result.
+     that sends tracking through the brute-force kernel;
+  5. loop circuit: bench.py's loop circuit at production widths, 330 frames
+     over 2.2 laps, sync mode, loop closing on: corrections, pre- and
+     post-correction ATE (bench.py's sync protocol), row_top2 launches by
+     shape (loop association runs it at (1024,2048,256) and swapped);
+  6. relocalization: the browse scene with frames 55-61 featureless
+     (tests/test_reloc.py's blackout) at production widths, 90 frames: the
+     track must relocalize into the same map through the kernel.
+Phases 5 and 6 keep the inputs of their first loop-association and
+relocalization matcher calls and, after the phase, hold the kernel against
+its plain version on them (matched indices that differ, and by how much in
+float64). The kernel's main-path launch counts are zeroed just before each
+of phases 4-6 and read just after. The line before the last is one JSON
+object describing every kernel; the last line is {"ok": true, "device":
+{...}}. Needs one CUDA card and no network. Without a card, or without the
+repository beside it, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
@@ -40,7 +51,8 @@ H100_BYTES_PER_S = 3.35e12
 H100_TF32_FLOPS = 495e12
 H100_FP32_FLOPS = 67e12
 TOL_SIM = 1e-5  # f32 over <= 256 unit-norm terms, summed in a different order
-TIMED_SHAPES = [(1024, 1024, 256), (1024, 4096, 256), (4096, 1024, 256), (1024, 8192, 256)]
+TIMED_SHAPES = [(1024, 1024, 256), (1024, 2048, 256), (2048, 1024, 256), (1024, 4096, 256),
+                (4096, 1024, 256), (1024, 8192, 256)]
 
 
 def log(*a):
@@ -193,8 +205,8 @@ def phase_kernel(torch):
         return A, Bm, torch.rand(NB, device="cuda", generator=g) > 0.1
 
     for NA, NB, D in [(1024, 1024, 256), (1000, 777, 256), (130, 4097, 64),
-                      (1024, 4096, 256), (4096, 1024, 256), (1024, 8192, 256),
-                      (100, 300, 13)]:
+                      (1024, 2048, 256), (2048, 1024, 256), (1024, 4096, 256),
+                      (4096, 1024, 256), (1024, 8192, 256), (100, 300, 13)]:
         compare(f"({NA},{NB},{D})", *problem(NA, NB, D))
     A, Bm, m = problem(1000, 777, 256)
     compare("(1000,777,256) base 4 bytes past 16-byte alignment",
@@ -256,9 +268,131 @@ def phase_kernel(torch):
 
 
 # ---------------------------------------------------------------------------
-def phase_slice(torch, smi):
-    from hfnet_slam_torch.evaluation import ate
+def reset_counts():
+    """Zero the kernel's launch counts: called just before a path runs."""
     from hfnet_slam_torch.ops import bf_match
+
+    bf_match.launches = 0
+    bf_match.shape_launches.clear()
+
+
+def read_counts():
+    from hfnet_slam_torch.ops import bf_match
+
+    return bf_match.launches, {",".join(map(str, k)): v
+                               for k, v in sorted(bf_match.shape_launches.items())}
+
+
+class MatcherCalls:
+    """Wraps slam.search.search_brute_force for one phase: keeps the inputs
+    of the first call `want(dB)` accepts while `active()` holds, and counts
+    the kernel launches made inside such calls."""
+
+    def __init__(self, want, active=lambda: True):
+        from hfnet_slam_torch.slam import search
+
+        self.search, self.real = search, search.search_brute_force
+        self.want, self.active = want, active
+        self.first, self.launches = None, 0
+
+    def __enter__(self):
+        from hfnet_slam_torch.ops import bf_match
+
+        def call(dA, mA, dB, mB, **kw):
+            if not (self.active() and self.want(dB)):
+                return self.real(dA, mA, dB, mB, **kw)
+            if self.first is None:
+                self.first = ([x.clone() for x in (dA, mA, dB, mB)], kw)
+            n0 = bf_match.launches
+            out = self.real(dA, mA, dB, mB, **kw)
+            self.launches += bf_match.launches - n0
+            return out
+
+        self.search.search_brute_force = call
+        return self
+
+    def __exit__(self, *exc):
+        self.search.search_brute_force = self.real
+        return False
+
+
+class StageTimes:
+    """Host ms of each call (fenced by torch.cuda.synchronize) of named
+    functions, attached for one phase: `StageTimes(torch, {"name": (obj,
+    "attr")})`. The fences fall inside the phase's frame times, which so
+    include them. It patches module and object attributes, so a caller that
+    imported a function by name bypasses it: the phase checks that every
+    stage it must run recorded a call. Restores every attribute on exit."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.ms = {k: [] for k in targets}
+
+    def __enter__(self):
+        self.saved = {k: getattr(o, a) for k, (o, a) in self.targets.items()}
+        for k, (o, a) in self.targets.items():
+            setattr(o, a, self._timed(k, self.saved[k]))
+        return self
+
+    def _timed(self, k, fn):
+        def run(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.ms[k].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        for k, (o, a) in self.targets.items():
+            setattr(o, a, self.saved[k])
+        return False
+
+    def report(self):
+        """Per name: total ms, calls, and each call's ms when there are few."""
+        return {k: {"ms": sum(v), "calls": len(v), **({"each_ms": v} if len(v) <= 4 else {})}
+                for k, v in self.ms.items()}
+
+
+def recheck(torch, label, captured):
+    """The kernel against its plain version on a phase's real matcher
+    inputs: row_top2 both ways and the gated mutual matcher. Prints how
+    many matched indices differ; fails only when a differing pick is more
+    than TOL_SIM worse in float64 (a bug, not a near-tie)."""
+    from hfnet_slam_torch.ops import bf_match as B
+    from hfnet_slam_torch.ops import matching as M
+
+    check(captured is not None, f"{label}: no matcher call was captured")
+    (dA, mA, dB, mB), kw = captured
+    out = {"shape": [dA.shape[0], dB.shape[0], dA.shape[1]]}
+    for name, (X, Y, mY) in (("forward", (dA, dB, mB)), ("swapped", (dB, dA, mA))):
+        best, _, idx = B.row_top2(X, Y, mY)
+        _, _, ri = B.row_top2_reference(X, Y, mY)
+        torch.cuda.synchronize()
+        bad = (idx != ri).nonzero().flatten()
+        S = torch.where(mY[None, :], X.double() @ Y.double().T, -1e9)
+        gaps = [abs(float(S[r, int(ri[r])] - S[r, int(idx[r])])) for r in bad.tolist()]
+        out[f"{name}_idx_differ"] = len(gaps)
+        out[f"{name}_max_gap"] = max(gaps, default=0.0)
+        check(max(gaps, default=0.0) <= TOL_SIM,
+              f"{label} {name}: kernel and plain picks {max(gaps, default=0.0)} apart")
+    iK, _ = B.match_descriptors_fused(dA, mA, dB, mB, **kw)
+    iP, _ = M.match_descriptors(dA, mA, dB, mB, mutual=True, **kw)
+    out["matches"] = int((iK >= 0).sum())
+    out["gated_idx_differ"] = int((iK != iP).sum())
+    log(f"{label} recheck: " + json.dumps(out))
+    return out
+
+
+def _ate(est, gt):
+    """Scale-corrected ATE of camera centres, metres."""
+    from hfnet_slam_torch.evaluation import ate
+
+    return float(ate.ate_rmse(np.asarray(est), np.asarray(gt), with_scale=True))
+
+
+def phase_slice(torch, smi):
     from hfnet_slam_torch.scenes import browse_pose, production_browse_system
     from hfnet_slam_torch.slam.tracking import OK
 
@@ -268,7 +402,7 @@ def phase_slice(torch, smi):
     feats = [ext(R, t) for R, t in poses]  # the stand-in extractor is not timed
     torch.cuda.synchronize()
 
-    bf_match.launches = 0  # count only the main path's launches
+    reset_counts()  # count only the main path's launches
     est, gt, frame_ms, kf_frames = [], [], np.zeros(n_frames), []
     for i, (R, t) in enumerate(poses):
         n_kf0 = sys_.store.n_kf
@@ -281,7 +415,7 @@ def phase_slice(torch, smi):
         if Re is not None:
             est.append(-Re.T @ te)
             gt.append(-R.T @ t)
-    launches = bf_match.launches
+    launches, by_shape = read_counts()
     store = sys_.store
     est, gt = np.asarray(est), np.asarray(gt)
     check(store._device_map.pos.device.type == "cuda", "map mirror is not on the card")
@@ -291,14 +425,14 @@ def phase_slice(torch, smi):
     check(launches >= 4, f"row_top2 launched {launches} times on the main path, want >= 4")
     check(np.isfinite(est).all(), "NaN/inf in the tracked poses")
     check(np.isfinite(store.mp_pos[store.mp_valid]).all(), "NaN/inf in the map points")
-    ate_m = float(ate.ate_rmse(est, gt, with_scale=True))
+    ate_m = _ate(est, gt)
     check(ate_m <= 0.01, f"scale-corrected ATE {ate_m} m > 0.01 m")
     steady = frame_ms[40:]
     non_kf = np.asarray([frame_ms[i] for i in range(40, n_frames) if i not in kf_frames])
     res = {
         "frames_tracked": len(est), "frames": n_frames,
         "keyframes": int(store.kf_valid.sum()), "map_points": int(store.mp_valid.sum()),
-        "ate_m": ate_m, "row_top2_launches": launches,
+        "ate_m": ate_m, "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape,
         "frame_ms_p50": float(np.percentile(steady, 50)),
         "frame_ms_p99": float(np.percentile(steady, 99)),
         "tracking_frame_ms_p50": float(np.percentile(non_kf, 50)),
@@ -306,7 +440,136 @@ def phase_slice(torch, smi):
         "card": smi,
     }
     log("slice: " + json.dumps(res))
-    return launches
+    return launches, by_shape
+
+
+def phase_loop(torch, smi):
+    """The production loop circuit, sync mode, loop closing on."""
+    from hfnet_slam_torch.optim import pose_graph, sim3
+    from hfnet_slam_torch.scenes import LOOP_PRODUCTION, loop_system, ring_pose
+    from hfnet_slam_torch.slam import retrieval
+    from hfnet_slam_torch.utils import trajectory as TJ
+
+    size = LOOP_PRODUCTION
+    n, win = size["frames"], size["loop"]["window_mp_cap"]
+    sys_, ext = loop_system(size)  # device=None: CUDA
+    poses = [ring_pose(i, n, size["total_angle"]) for i in range(n)]
+    feats = [ext(R, t) for R, t in poses]
+    torch.cuda.synchronize()
+    lc = sys_.loop_closer
+
+    stages = StageTimes(torch, {
+        "retrieval": (retrieval, "detect_n_best_candidates"),
+        "match_candidate": (lc, "_match_candidate"),
+        "sim3_ransac": (sim3, "sim3_ransac"),
+        "optimize_sim3": (sim3, "optimize_sim3"),
+        "refine_from_last_kf": (lc, "_refine_from_last_kf"),
+        "fuse_loop_points": (lc, "_fuse_loop_points"),
+        "pose_graph": (pose_graph, "optimize_pose_graph"),
+        "global_ba": (sys_.mapper, "run_global_ba"),
+        "local_mapping": (sys_.mapper, "process_keyframe")})
+    reset_counts()
+    live, gt, frame_ms, corr_ms = [], [], np.zeros(n), {}
+    with MatcherCalls(lambda dB: dB.shape[0] == win) as loop_calls, stages:
+        for i, (R, t) in enumerate(poses):
+            c0 = lc.stats["corrected"]
+            f0 = time.perf_counter()
+            _, Re, te = sys_.track_features(feats[i], 0.05 * i)
+            torch.cuda.synchronize()
+            frame_ms[i] = (time.perf_counter() - f0) * 1e3
+            if lc.stats["corrected"] != c0:
+                corr_ms[i] = frame_ms[i]
+            if Re is not None:
+                live.append(-Re.T @ te)
+                gt.append(-R.T @ t)
+    launches, by_shape = read_counts()
+    store = sys_.store
+    # bench.py's sync protocol: pre = the track-time poses of every tracked
+    # frame; post = the poses rebuilt through the final map's keyframes
+    rec, _, _ = TJ.recovered_resolved(sys_.trajectory, store=store)
+    rc, rg = [], []
+    for ts, R_e, t_e in rec:
+        R, t = poses[int(round(ts / 0.05))]
+        rc.append(-R_e.T @ t_e)
+        rg.append(-R.T @ t)
+    pre = _ate(live, gt)
+    post = _ate(rc, rg) if len(rc) > 20 else float("nan")
+    res = {
+        "frames_tracked": len(live), "frames": n, "corrections": lc.stats["corrected"],
+        "detected": lc.stats["detected"], "checked": lc.stats["checked"],
+        "refined": lc.stats["refined"], "loop_edges": len(store.loop_edges),
+        "keyframes": int(store.kf_valid.sum()), "map_points": int(store.mp_valid.sum()),
+        "ate_pre_m": pre, "ate_post_m": post, "recovered_frames": len(rc),
+        "frame_ms_p50": float(np.percentile(frame_ms[12:], 50)),
+        "frame_ms_p99": float(np.percentile(frame_ms[12:], 99)),
+        "correction_frame_ms": {str(k): v for k, v in corr_ms.items()},
+        "stage_ms": stages.report(),
+        "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape,
+        "card": smi,
+    }
+    log("loop: " + json.dumps(res))
+    check(np.isfinite(np.asarray(live)).all(), "NaN/inf in the tracked poses")
+    check(np.isfinite(store.mp_pos[store.mp_valid]).all(), "NaN/inf in the map points")
+    check(np.isfinite(store.kf_t[store.kf_valid]).all(), "NaN/inf in the keyframe poses")
+    check(lc.stats["corrected"] >= 1, f"no loop correction ({lc.stats})")
+    # a correction runs each of these stages at least once
+    for name in ("retrieval", "match_candidate", "sim3_ransac", "optimize_sim3",
+                 "fuse_loop_points", "pose_graph", "global_ba", "local_mapping"):
+        check(len(stages.ms[name]) >= 1, f"stage {name} recorded no call")
+    check(post <= 0.03, f"post-correction ATE {post} m > 0.03 m")
+    check(post <= pre, f"post-correction ATE {post} m > pre-correction {pre} m")
+    N, D = sys_.cfg.n_slots, sys_.cfg.desc_dim
+    for shape in (f"{N},{win},{D}", f"{win},{N},{D}"):
+        check(by_shape.get(shape, 0) >= 1, f"row_top2 never launched at ({shape})")
+    rech = recheck(torch, "loop association", loop_calls.first)
+    return launches, by_shape, rech
+
+
+def phase_reloc(torch, smi):
+    """tests/test_reloc.py's blackout at production widths."""
+    from hfnet_slam_torch.models.extractor import Features
+    from hfnet_slam_torch.scenes import BLACKOUT, PRODUCTION, browse_pose, browse_system, reloc_spec
+    from hfnet_slam_torch.slam.tracking import OK, RECENTLY_LOST
+
+    n = 90
+    sys_, ext = browse_system(PRODUCTION, spec=reloc_spec)  # device=None: CUDA
+    N, D, G = sys_.cfg.n_slots, sys_.cfg.desc_dim, sys_.cfg.gdesc_dim
+    z = dict(device=sys_.device)
+    empty = Features(xy=torch.zeros((N, 2), **z), score=torch.zeros(N, **z),
+                     octave=torch.zeros(N, dtype=torch.int32, **z),
+                     desc=torch.zeros((N, D), **z), mask=torch.zeros(N, dtype=torch.bool, **z),
+                     global_desc=torch.zeros(G, **z))
+    feats = [empty if i in BLACKOUT else ext(*browse_pose(i)) for i in range(n)]
+    torch.cuda.synchronize()
+
+    reset_counts()
+    states, frame_ms = [], np.zeros(n)
+    tracker = sys_.tracker
+    with MatcherCalls(lambda dB: True, lambda: tracker.state == RECENTLY_LOST) as reloc_calls:
+        for i in range(n):
+            f0 = time.perf_counter()
+            st, _, _ = sys_.track_features(feats[i], 0.05 * i)
+            torch.cuda.synchronize()
+            frame_ms[i] = (time.perf_counter() - f0) * 1e3
+            states.append(int(st))
+    launches, by_shape = read_counts()
+    lost = [i for i, st in enumerate(states) if st == RECENTLY_LOST]
+    back = [i for i in range(lost[0], n) if states[i] == OK] if lost else []
+    res = {"frames": n, "recently_lost_frames": lost, "relocalized_at": back[0] if back else None,
+           "n_relocalizations": tracker.n_relocalizations, "maps": sys_.atlas.n_maps(),
+           "final_state": states[-1], "reloc_row_top2_launches": reloc_calls.launches,
+           "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape,
+           "reloc_frame_ms": frame_ms[back[0]] if back else None, "card": smi}
+    log("relocalization: " + json.dumps(res))
+    check(bool(lost), "the blackout never sent tracking to RECENTLY_LOST")
+    check(bool(back), "no relocalization back to OK after the blackout")
+    check(tracker.n_relocalizations >= 1, "n_relocalizations is 0")
+    check(sys_.atlas.n_maps() == 1, f"{sys_.atlas.n_maps()} maps: relocalization fell back "
+          "to a new map")
+    check(reloc_calls.launches >= 1 and by_shape.get(f"{N},{N},{D}", 0) >= 1,
+          f"row_top2 was not launched by relocalization at ({N},{N},{D})")
+    rech = recheck(torch, "relocalization", reloc_calls.first)
+    return launches, by_shape, rech, reloc_calls.launches
 
 
 def main():
@@ -321,17 +584,30 @@ def main():
     smi = phase_environment(torch)
     phase_build()
     max_err, timings = phase_kernel(torch)
-    launches = phase_slice(torch, smi)
+    t0 = time.perf_counter()
+    n_browse, shapes_browse = phase_slice(torch, smi)
+    t1 = time.perf_counter()
+    n_loop, shapes_loop, rech_loop = phase_loop(torch, smi)
+    t2 = time.perf_counter()
+    n_reloc, shapes_reloc, rech_reloc, n_reloc_calls = phase_reloc(torch, smi)
+    log(f"phase seconds: browse {t1 - t0:.1f}, loop {t2 - t1:.1f}, "
+        f"relocalization {time.perf_counter() - t2:.1f}")
 
-    # the slice's shape leads; the loop-association shapes follow under "shapes"
+    # the browse shape leads; the loop-association shapes follow under "shapes"
     kern = {
         "name": "row_top2", "route": "cuda",
         "source": "hfnet_slam_torch/csrc/row_top2.cu",
         "replaces": "hfnet_slam_tpu/ops/pallas_match.py:52",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": n_browse + n_loop + n_reloc,
+        "launches_by_path": {"browse": n_browse, "loop": n_loop, "relocalization": n_reloc,
+                             "relocalization_calls": n_reloc_calls},
+        "launches_by_shape": {"browse": shapes_browse, "loop": shapes_loop,
+                              "relocalization": shapes_reloc},
+        "max_abs_err": max_err,
         **timings[0],
         "bound_peak": "3xTF32 on the tensor cores, 495 TFLOP/s",
         "shapes": timings[1:],
+        "recheck_on_path_inputs": [rech_loop, rech_reloc],
     }
     log(smi)
     log(json.dumps({"kernels": [kern]}))

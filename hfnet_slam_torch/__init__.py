@@ -4,15 +4,19 @@ The port of `hfnet_slam_tpu` (the JAX reference, which stays beside it
 unchanged). It mirrors the reference's layout so each counterpart is easy to
 find, and imports neither `jax` nor any module of the reference:
 
-  lie.py          -- SO3/SE3 exp/log, retraction, orthonormalization
+  lie.py          -- SO3/SE3/Sim3 exp/log, retraction, orthonormalization
   geometry/       -- cameras, triangulation, two-view initialization
   models/         -- the Features record and the deterministic fake extractor
-  ops/            -- descriptor matching; the brute-force matcher kernel
-  optim/          -- pose-only LM and Schur-complement bundle adjustment
-  slam/           -- map store, device mirrors, tracking, local mapping, facade
+  ops/            -- descriptor matching, retrieval scores; the brute-force
+                     matcher kernel
+  optim/          -- pose-only LM, Schur-complement bundle adjustment, PnP
+                     and Sim3 RANSAC, the Sim3 pose graph
+  slam/           -- map store, device mirrors, tracking and relocalization,
+                     local mapping, retrieval, loop closing, merging, facade
   native/         -- C++ host runtime (covisibility bookkeeping) via ctypes
   csrc/           -- hand-written CUDA kernels (built with nvcc at first use)
   evaluation/     -- ATE (Horn alignment)
+  utils/          -- trajectory recovery through reference keyframes
   convert.py      -- map and tracker state carried over from the reference
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no

@@ -1,10 +1,11 @@
-"""Lie groups SO(3) / SE(3) on torch tensors.
+"""Lie groups SO(3) / SE(3) / Sim(3) on torch tensors.
 
-Counterpart of hfnet_slam_tpu/lie.py (SO3/SE3 part; Sim3 arrives with loop
-closing). Same conventions:
+Counterpart of hfnet_slam_tpu/lie.py. Same conventions:
   * rotations are (...,3,3) matrices, every function broadcasts over leading
     dims (the reference's vmap becomes plain broadcasting);
   * SE3 is a pair (R, t); tangent ordering se3 = [rho(3), phi(3)];
+  * Sim3 is a triple (R, t, s); tangent ordering sim3 = [rho, phi, sigma]
+    with s = exp(sigma);
   * small-angle branches are `torch.where` over Taylor expansions with the
     generic branch's inputs guarded, so neither branch produces NaN.
 """
@@ -119,6 +120,72 @@ def se3_retract(R, t, xi):
     return se3_mul(dR, dt, R, t)
 
 
+def _sim3_W(phi, sigma):
+    """W of the Sim(3) exp (t = W rho): C*I + A*hat(phi) + B*hat(phi)^2,
+    with Taylor branches for small theta and/or sigma (Sophus calcW)."""
+    theta2 = torch.sum(phi * phi, -1)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    s = torch.exp(sigma)
+    small_sig = torch.abs(sigma) < 1e-5
+    small_th = theta2 < 1e-8
+    sig_safe = torch.where(small_sig, torch.ones_like(sigma), sigma)
+    th_safe = torch.where(small_th, torch.ones_like(theta), theta)
+    th2_safe = torch.where(small_th, torch.ones_like(theta2), theta2)
+
+    C = torch.where(small_sig, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, (s - 1.0) / sig_safe)
+    a = s * torch.sin(theta)
+    b = s * torch.cos(theta)
+    c = theta2 + sigma * sigma
+    c_safe = torch.where(small_th & small_sig, torch.ones_like(c), c)
+    A = torch.where(
+        small_th,
+        torch.where(small_sig, 0.5 + sigma / 3.0,
+                    ((sigma - 1.0) * s + 1.0) / (sig_safe * sig_safe)),
+        (a * sigma + (1.0 - b) * theta) / (th_safe * c_safe))
+    B = torch.where(
+        small_th,
+        torch.where(small_sig, 1.0 / 6.0 + sigma / 8.0,
+                    (s * (sigma * sigma / 2.0 - sigma + 1.0) - 1.0) / sig_safe ** 3),
+        (C - ((b - 1.0) * sigma + a * theta) / c_safe) / th2_safe)
+    K = hat(phi)
+    return C[..., None, None] * _eye_like(K) + A[..., None, None] * K + B[..., None, None] * (K @ K)
+
+
+def sim3_exp(xi):
+    """xi = [rho, phi, sigma] (...,7) -> (R, t, s) with s = exp(sigma)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return so3_exp(phi), (_sim3_W(phi, sigma) @ rho[..., None])[..., 0], torch.exp(sigma)
+
+
+def sim3_log(R, t, s):
+    """rho = W^-1 t by the 3x3 adjugate (columns of W^-1 are cross products
+    of W's rows): torch.linalg.solve returns NaN tangents under
+    torch.func.vmap(jacfwd), which the pose graph uses."""
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    W = _sim3_W(phi, sigma)
+    a0, a1, a2 = W[..., 0, :], W[..., 1, :], W[..., 2, :]
+    c0, c1, c2 = (torch.linalg.cross(a1, a2), torch.linalg.cross(a2, a0),
+                  torch.linalg.cross(a0, a1))
+    det = torch.sum(a0 * c0, -1, keepdim=True)
+    rho = (c0 * t[..., 0:1] + c1 * t[..., 1:2] + c2 * t[..., 2:3]) / det
+    return torch.cat([rho, phi, sigma[..., None]], -1)
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0], s_inv
+
+
+def sim3_mul(R1, t1, s1, R2, t2, s2):
+    return R1 @ R2, s1[..., None] * (R1 @ t2[..., None])[..., 0] + t1, s1 * s2
+
+
+def sim3_apply(R, t, s, p):
+    return s[..., None] * (R @ p[..., None])[..., 0] + t
+
+
 def rot_to_quat(R):
     """(...,3,3) -> (...,4) wxyz, Shepperd's method (branch-safe)."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
@@ -164,6 +231,15 @@ def quat_to_rot(q):
         torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
         torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
     ], -2)
+
+
+def normalize_rotation(R):
+    """Nearest rotation by SVD, the reference's determinant-sign fix kept
+    (IMU::NormalizeRotation)."""
+    U, _, Vh = torch.linalg.svd(R)
+    det = torch.linalg.det(U @ Vh)
+    U = torch.cat([U[..., :, :2], U[..., :, 2:] * torch.sign(det)[..., None, None]], -1)
+    return U @ Vh
 
 
 def orthonormalize(R):

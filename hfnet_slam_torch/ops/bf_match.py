@@ -13,6 +13,7 @@ the CUDA runtime's entry-point query, so the library does not link libcuda.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -29,9 +30,10 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 _LIB_PATH = os.path.join(D.BUILD_DIR, "librow_top2.so")
 _NO_ENCODER = -1000000  # row_top2_launch: cuTensorMapEncodeTiled not found
 
-# kernel launches made by row_top2 on CUDA tensors (one per wrapper call);
-# reset by callers that count
+# kernel launches made by row_top2 on CUDA tensors (one per wrapper call),
+# in all and by (NA, NB, D); reset by callers that count
 launches = 0
+shape_launches = collections.Counter()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -182,6 +184,7 @@ def row_top2(dA, dB, maskB):
     if err < 0:
         raise RuntimeError(f"row_top2: cuTensorMapEncodeTiled failed: CUresult {-err}")
     launches += 1
+    shape_launches[(NA, NB, Dd)] += 1
     return best, second, idx
 
 

@@ -75,6 +75,19 @@ def octave_allowed(octA, octB, tol: int = 1):
     return torch.abs(octA[:, None] - octB[None, :]) <= tol
 
 
+def global_scores(query, db, db_mask):
+    """Place-recognition scores of `query` (G,) against a database (K,G):
+    max(0, 1 - |g_q - g_i|) (KeyFrameDatabase.cc:85-96), 0 on invalid rows."""
+    d2 = torch.clamp(2.0 - 2.0 * (db @ query), min=0.0)
+    return torch.where(db_mask, torch.clamp(1.0 - torch.sqrt(d2), min=0.0), 0.0)
+
+
+def global_scores_batch(queries, db, db_mask):
+    """(Q,G) x (K,G) -> (Q,K) retrieval scores."""
+    d = torch.sqrt(torch.clamp(2.0 - 2.0 * (queries @ db.T), min=0.0))
+    return torch.where(db_mask[None, :], torch.clamp(1.0 - d, min=0.0), 0.0)
+
+
 def distinctive_descriptors(descs, mask):
     """Per point, the observation whose median squared distance to the
     point's other observations is smallest (MapPoint::

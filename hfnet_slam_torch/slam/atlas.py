@@ -19,6 +19,9 @@ class Atlas:
     def active(self) -> MapStore:
         return self.maps[self.active_idx]
 
+    def n_maps(self) -> int:
+        return len(self.maps)
+
     def create_new_map(self) -> MapStore:
         """Store the current map and start a fresh one (CreateMapInAtlas)."""
         self.maps.append(MapStore(*self._caps))

@@ -10,7 +10,8 @@ Counterpart of hfnet_slam_tpu/slam/fused.py:
     round trip inside; the host passes two -1-padded id vectors and reads
     one small dict back;
   * `triangulate_banked` and `fuse_neighbors_banked` are LocalMapping's
-    per-keyframe blocks over a neighbor batch.
+    per-keyframe blocks over a neighbor batch; `fuse_targets_banked` is loop
+    closing's fuse of the loop landmarks into the corrected window.
 The reference vmaps per-pair functions over neighbor batches; here every
 building block takes the batch dimension explicitly.
 
@@ -19,8 +20,6 @@ reference's non-donated scatters: a handle tuple taken by snapshot() stays
 internally consistent while a later sync() builds new tensors. The
 out-of-range pad rows the reference scatters with mode="drop" do not exist
 here: eager scatters take exactly the dirty ids.
-
-`fuse_targets_banked` serves loop closing and arrives with that slice.
 """
 from __future__ import annotations
 
@@ -370,9 +369,31 @@ def fuse_neighbors_banked(cam_kind, cam_params, W, H, tgt_ids, src_ids, R_t, t_t
     ss = torch.clamp(src_ids, 0, K - 1)
     free_t = b_mask[ts] & (b_obs[ts] < 0) & (tgt_ids >= 0)[:, None]
     cand = torch.where((src_ids >= 0)[:, None], b_obs[ss], -1)
-    safe, ok = _gather_candidates(cand.long(), m_valid)
-    radii = radius * (1.2 ** b_oct[ts].to(torch.float32))
+    return _fuse_core(cam_kind, cam_params, W, H, R_t, t_t, b_xy[ts], b_desc[ts], b_oct[ts],
+                      free_t, cand, m_pos, m_desc, m_valid, radius, max_dist)
+
+
+def fuse_targets_banked(cam_kind, cam_params, W, H, tgt_ids, cand_ids, R_t, t_t,
+                        b_xy, b_desc, b_oct, b_mask, m_pos, m_desc, m_valid,
+                        radius: float = 3.0, max_dist: float = 0.75):
+    """Loop-correction fuse (SearchAndFuse): target keypoint rows gathered
+    from the bank, the candidate points (the loop landmarks) passed as
+    explicit (P,C) ids, -1 padded. Every masked slot is fusable: a
+    conflicting observation is replaced by the loop point
+    (LoopClosing.cc:1260-1273). Returns idx (P,N) into the candidate axis."""
+    K = b_desc.shape[0]
+    ts = torch.clamp(tgt_ids, 0, K - 1)
+    free_t = b_mask[ts] & (tgt_ids >= 0)[:, None]
+    return _fuse_core(cam_kind, cam_params, W, H, R_t, t_t, b_xy[ts], b_desc[ts], b_oct[ts],
+                      free_t, cand_ids, m_pos, m_desc, m_valid, radius, max_dist)
+
+
+def _fuse_core(cam_kind, cam_params, W, H, R_t, t_t, xy_t, desc_t, oct_t, free_t,
+               cand_ids, m_pos, m_desc, m_valid, radius, max_dist):
+    """Project each pair's candidate points (ids gathered from the device
+    map) into its target keyframe and match them to the free slots."""
+    safe, ok = _gather_candidates(cand_ids.long(), m_valid)
+    radii = radius * (1.2 ** oct_t.to(torch.float32))
     idx, _ = _match_projected(cam_kind, cam_params, W, H, R_t, t_t, m_pos[safe],
-                              m_desc[safe], ok, b_xy[ts], b_desc[ts], radii, free_t,
-                              max_dist)
+                              m_desc[safe], ok, xy_t, desc_t, radii, free_t, max_dist)
     return idx

@@ -7,9 +7,10 @@ KeyFrameCulling runs synchronously on keyframe insertion, with every compute
 block a batched kernel on the mapper's device (fused.triangulate_banked,
 fused.fuse_neighbors_banked, optim.ba) and the bookkeeping in numpy.
 
-Out of this slice: global BA and its correction propagation (loop closing,
-ROADMAP.md Queue 1 item 14), the distributed solvers (item 17), visual-
-inertial BA (item 15) and the stereo rig's right-camera edges (item 16).
+Global BA (`run_global_ba`, loop closing's full-map solve) and its
+correction propagation run here too. Out of this slice: the distributed
+solvers (ROADMAP.md Queue 1 item 17), visual-inertial BA (item 15) and the
+stereo rig's right-camera edges (item 16).
 """
 from __future__ import annotations
 
@@ -284,6 +285,87 @@ class LocalMapper:
             fixed_ids.add(cand)
         self._run_ba(list(all_kfs), fixed_ids=fixed_ids, rounds=cfg.ba_rounds,
                      mp_ids=mp_ids, should_abort=lambda: self.abort_ba)
+
+    def run_global_ba(self, fixed_ids, rounds=((10, True),), kf_cap=None, mp_cap=None,
+                      edge_cap=None):
+        """Full-map BA (GlobalBundleAdjustemnt): every valid keyframe and
+        landmark optimizes. A problem past the caps goes, in the reference,
+        to the distributed Schur solver sized to the whole map, which on one
+        device is the same math as the single solver; here the single solver
+        is sized to the whole problem instead (capacities padded to powers
+        of two), so no keyframe is left on rigid propagation. Points outside
+        the solve follow their reference keyframe (propagate_ba_correction)."""
+        store = self.store
+        cfg = self.cfg
+        kf_ids = store.valid_kf_ids()
+        if len(kf_ids) < 2:
+            return
+        pre_R = store.kf_R.copy()
+        pre_t = store.kf_t.copy()
+        n_mp = int(store.mp_valid.sum())
+        n_obs = int((store.kf_obs[kf_ids] >= 0).sum())
+        caps = (kf_cap or cfg.ba_kf_cap, mp_cap or cfg.ba_mp_cap, edge_cap or cfg.ba_edge_cap)
+        if len(kf_ids) > caps[0] or n_mp > caps[1] or n_obs > caps[2]:
+            caps = tuple(1 << max(lo, int(n - 1).bit_length())
+                         for n, lo in ((len(kf_ids), 3), (n_mp, 4), (n_obs, 6)))
+        res = self._run_ba(list(kf_ids), fixed_ids=set(int(i) for i in fixed_ids),
+                           rounds=rounds, kf_cap=caps[0], mp_cap=caps[1], edge_cap=caps[2])
+        if res is not None:
+            self.propagate_ba_correction(res["kf_ids"], res["mp_ids"], pre_R, pre_t)
+            store.bump_change()  # whole-map move: the device mirror re-uploads
+
+    def propagate_ba_correction(self, opt_kfs, opt_mps, pre_R, pre_t):
+        """Correct every valid keyframe and point NOT covered by a solve:
+        an uncovered keyframe rigidly follows its nearest covered anchor
+        (spanning-tree parent, then strongest covisible, then nearest in
+        time), T_new = (T_old T_anc_old^-1) T_anc_new; an uncovered point
+        follows its reference keyframe (RunGlobalBundleAdjustment's
+        propagation, LoopClosing.cc:2440-2540)."""
+        store = self.store
+        opt_set = set(int(i) for i in opt_kfs)
+        pending = [int(j) for j in store.valid_kf_ids() if int(j) not in opt_set]
+        if pending:
+            covered = np.zeros(store.k_max, bool)
+            covered[list(opt_set)] = True
+            opt_ts = np.asarray(sorted(opt_set))
+            # ascending id: parents are older, so one pass resolves chains
+            for j in sorted(pending):
+                anc = int(store.kf_parent[j])
+                if anc < 0 or not (store.kf_valid[anc] and covered[anc]):
+                    w = np.where(covered, store.covis[j], 0)
+                    if w.max() > 0:
+                        anc = int(np.argmax(w))
+                    else:
+                        dt = np.abs(store.kf_timestamp[opt_ts] - store.kf_timestamp[j])
+                        anc = int(opt_ts[np.argmin(dt)])
+                self._apply_delta(j, anc, pre_R, pre_t)
+                covered[j] = True
+        mp_all = np.nonzero(store.mp_valid)[0]
+        left = np.setdiff1d(mp_all, np.asarray(opt_mps, int))
+        if len(left) == 0:
+            return
+        ref = store.mp_first_kf[left].copy()
+        bad = (ref < 0) | (~store.kf_valid[np.clip(ref, 0, store.k_max - 1)])
+        if bad.any():
+            kf_e, _, mp_e = store.observing_slots(left[bad])
+            first = {}
+            for kf_, mp_ in zip(kf_e, mp_e):
+                first.setdefault(int(mp_), int(kf_))
+            ref[bad] = [first.get(int(m), -1) for m in left[bad]]
+        for g in np.unique(ref):
+            if g < 0 or not store.kf_valid[g]:
+                continue
+            ids = left[ref == g]
+            p_cam = store.mp_pos[ids] @ pre_R[g].T + pre_t[g]
+            store.mp_pos[ids] = (p_cam - store.kf_t[g]) @ store.kf_R[g]
+
+    def _apply_delta(self, j, anc, pre_R, pre_t):
+        """T_j_new = (T_j_old T_anc_old^-1) T_anc_new."""
+        store = self.store
+        R_rel = pre_R[j] @ pre_R[anc].T
+        t_rel = pre_t[j] - R_rel @ pre_t[anc]
+        store.kf_R[j] = R_rel @ store.kf_R[anc]
+        store.kf_t[j] = R_rel @ store.kf_t[anc] + t_rel
 
     def _gather_edges(self, kf_ids, mp_ids, kf_cap, mp_cap, edge_cap):
         """(kf, slot, mp) observation triples among the given keyframe and

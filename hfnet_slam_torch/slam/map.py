@@ -298,6 +298,9 @@ class MapStore:
         self.loop_edges = [e for e in self.loop_edges if k not in e]
         self._free_kf.append(k)
 
+    def valid_kf_ids(self):
+        return np.nonzero(self.kf_valid)[0]
+
     def resolve_uid(self, uid: int):
         """Resolve a keyframe uid to (slot, R_chase, t_chase): the live slot
         that now anchors it, plus the accumulated relative pose through any

@@ -1,9 +1,12 @@
 """SLAM system facade: the public API of the port.
 
 Counterpart of hfnet_slam_tpu/slam/system.py in its synchronous monocular
-form: construction wires the extractor, tracker and local mapper around one
-MapStore; `track_monocular(image, t)` / `track_features(feats, t)` are the
-per-frame entries; `save_map` / `load_map` use the reference's .npz format.
+form: construction wires the extractor, tracker, local mapper and (with the
+reference's default loop_closing=True) the loop closer around the atlas's
+active MapStore; `track_monocular(image, t)` / `track_features(feats, t)` are
+the per-frame entries; a loop-closer hit in another map welds the maps
+(`execute_merge`, `weld_after_merge`); `save_map` / `load_map` use the
+reference's .npz format.
 
 `SLAMSystem(cam, extractor, cfg, device=None)` runs on CUDA (None) unless the
 caller passes device="cpu"; a CUDA request without a card raises. Features
@@ -14,18 +17,22 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from .. import device as D
 from ..geometry import cameras
+from . import merging
 from .atlas import Atlas
 from .local_mapping import LocalMapper, MapperConfig
+from .loop_closing import LoopCloser, LoopCloserConfig
 from .map import MapStore
 from .tracking import LOST, Tracker, TrackerConfig
 
 
 @dataclasses.dataclass
 class SystemConfig:
-    """The reference's SystemConfig fields. `loop` and `vi` stay None until
-    the loop-closing and visual-inertial slices bring their configs."""
+    """The reference's SystemConfig fields. `vi` stays None until the
+    visual-inertial slice brings its config."""
 
     k_max: int = 256
     m_max: int = 32768
@@ -41,18 +48,15 @@ class SystemConfig:
     virtual_baseline: float = 0.08
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
     mapper: MapperConfig = dataclasses.field(default_factory=MapperConfig)
-    loop: object = None
+    loop: LoopCloserConfig = dataclasses.field(default_factory=LoopCloserConfig)
     vi: object = None
 
 
 def _check_slice(cfg: SystemConfig, imu_calib):
-    if cfg.loop_closing:
-        raise NotImplementedError(
-            "loop closing is ROADMAP.md Queue 1 item 14; pass "
-            "SystemConfig(loop_closing=False)")
     if cfg.async_mapping:
         raise NotImplementedError(
-            "the async mapping/loop pipeline is ROADMAP.md Queue 1 item 14")
+            "the async mapping/loop pipeline is ROADMAP.md Queue 1 item 14b; pass "
+            "SystemConfig(async_mapping=False)")
     if imu_calib is not None:
         raise NotImplementedError("visual-inertial SLAM is ROADMAP.md Queue 1 item 15")
     if cfg.baseline > 0 or cfg.cam_right is not None or cfg.T_lr is not None:
@@ -77,8 +81,12 @@ class SLAMSystem:
         c.tracker.bf = bf
         c.mapper.bf = bf
         self.mapper = LocalMapper(self.cam, self.store, c.mapper, device=self.device)
+        self.loop_closer = (LoopCloser(self.cam, self.store, c.loop, mapper=self.mapper,
+                                       device=self.device) if c.loop_closing else None)
         self.tracker = Tracker(self.cam, self.store, c.tracker, mapper=self.mapper,
-                               device=self.device)
+                               loop_closer=self.loop_closer, device=self.device)
+        if self.loop_closer is not None:
+            self.loop_closer.system = self  # enables cross-map merges
         self._traj_mark = 0
 
     @property
@@ -97,6 +105,19 @@ class SLAMSystem:
 
     def track_monocular_inertial(self, image, timestamp: float, imu):
         raise NotImplementedError("visual-inertial SLAM is ROADMAP.md Queue 1 item 15")
+
+    def track_stereo_inertial(self, image_left, image_right, timestamp: float, imu):
+        raise NotImplementedError("visual-inertial SLAM is ROADMAP.md Queue 1 item 15")
+
+    def install_mesh(self, mesh):
+        raise NotImplementedError(
+            "multi-GPU global BA and retrieval are ROADMAP.md Queue 1 item 17")
+
+    def save_atlas(self, path):
+        raise NotImplementedError("atlas persistence is ROADMAP.md Queue 1 item 14b")
+
+    def load_atlas(self, path):
+        raise NotImplementedError("atlas persistence is ROADMAP.md Queue 1 item 14b")
 
     def track_features(self, feats, timestamp: float):
         """Feed pre-extracted features (testing / offline pipelines)."""
@@ -136,6 +157,69 @@ class SLAMSystem:
         self.mapper.recent_points = []
         self.mapper.kf_born = {}
         self.tracker.store = store
+        if self.loop_closer is not None:
+            self.loop_closer.store = store
+            self.loop_closer._reset_pending()
+
+    # ------------------------------------------------------------------
+    def execute_merge(self, target_idx: int, k: int, cand: int, R_cm, t_cm, s_cm, win_mps):
+        """Weld the active map into atlas map `target_idx` through the
+        matched Sim3 (LoopClosing::MergeLocal). Returns keyframe k's id in
+        the merged map, or False."""
+        active = self.store
+        target = self.atlas.maps[target_idx]
+        G = merging.compute_world_transform(active, target, k, cand, R_cm, t_cm, s_cm)
+        kf_remap, _ = merging.merge_into(active, target, G)
+        if k not in kf_remap:
+            return False
+        k_new = kf_remap[k]
+        for b in kf_remap.values():
+            target.update_covisibility(b)
+        # the target becomes active, the absorbed map is dropped
+        self.atlas.maps = [m for m in self.atlas.maps if m is not active]
+        self.atlas.active_idx = self.atlas.maps.index(target)
+        self._rewire(target)
+
+        tr = self.tracker
+        tr.ref_kf = k_new
+        tr.velocity = None
+        if tr.last_frame is not None:
+            tr.last_frame.R = target.kf_R[k_new].copy()
+            tr.last_frame.t = target.kf_t[k_new].copy()
+            tr.last_frame.obs = target.kf_obs[k_new].copy()
+        target.bump_change()
+        # the trajectory recorded in the absorbed map moves into the target
+        # frame; reference-keyframe links follow the transplanted keyframes
+        # (relative translations rescale by 1/s)
+        Rg, tg, sg = G
+        for e in tr.trajectory[self._traj_mark:]:
+            R_new = e.R @ Rg.T
+            e.R, e.t = R_new, e.t / sg - R_new @ (tg / sg)
+            if e.store is active and e.ref_uid >= 0:
+                old_slot = active._uid_slot.get(int(e.ref_uid))
+                new_slot = kf_remap.get(old_slot) if old_slot is not None else None
+                if new_slot is None:
+                    e.store = None  # chain broken; the absolute pose stands
+                else:
+                    e.store = target
+                    e.ref_uid = int(target.kf_uid[new_slot])
+                    e.t_rel = e.t_rel / sg
+            elif e.store is active:
+                e.store = None
+        return k_new
+
+    def weld_after_merge(self, k_new: int, win_mps) -> None:
+        """The welding passes after a merge: seam fuse, window BA, global
+        polish with the oldest keyframe fixed."""
+        target = self.store
+        if self.loop_closer is not None and target.kf_valid[k_new]:
+            window = [k_new] + [int(j) for j in target.covisible_kfs(k_new, n=8, min_weight=1)]
+            self.loop_closer._fuse_loop_points(window, np.asarray(win_mps))
+        self.mapper.local_ba(k_new)
+        lc = self.cfg.loop
+        self.mapper.run_global_ba(fixed_ids=[int(target.valid_kf_ids()[0])],
+                                  rounds=lc.gba_rounds, kf_cap=lc.gba_kf_cap,
+                                  mp_cap=lc.gba_mp_cap, edge_cap=lc.gba_edge_cap)
 
     @property
     def trajectory(self):

@@ -3,12 +3,15 @@
 Counterpart of hfnet_slam_tpu/slam/tracking.py. The irregular state machine
 stays in host Python and numpy; every per-frame compute block (projection
 and brute-force matching, pose optimization, the fused track_step) runs on
-the tracker's device. States: NOT_INITIALIZED -> OK -> (RECENTLY_)LOST.
+the tracker's device. States: NOT_INITIALIZED -> OK -> (RECENTLY_)LOST; a
+track lost on a mature map relocalizes (global retrieval, brute-force
+matching through the row_top2 kernel on CUDA, batched PnP RANSAC, pose
+optimization). Each new keyframe goes to the local mapper and then to the
+loop closer, inline.
 
 Out of this slice, and raising NotImplementedError when reached:
-relocalization (ROADMAP.md Queue 1 item 14), visual-inertial tracking (item
-15) and stereo/RGB-D depth (item 16). A track lost on a mature map therefore
-fails loudly instead of silently diverging from the reference.
+visual-inertial tracking (ROADMAP.md Queue 1 item 15) and stereo/RGB-D depth
+(item 16).
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ from .. import device as D
 from .. import lie
 from ..geometry import cameras, twoview
 from ..models.extractor import Features
-from ..optim import pose_opt
-from . import fused, search
+from ..ops import matching as M
+from ..optim import pnp, pose_opt
+from . import fused, retrieval, search
 from .map import MapStore
 from .pipeline import NULL_LOCK
 
@@ -133,12 +137,13 @@ class Frame:
 
 class Tracker:
     def __init__(self, cam: cameras.Camera, store: MapStore, cfg: TrackerConfig = None,
-                 mapper=None, rng_seed: int = 0, device=None):
+                 mapper=None, loop_closer=None, rng_seed: int = 0, device=None):
         self.device = D.resolve(device)
         self.cam = cam.to(self.device)
         self.store = store
         self.cfg = cfg or TrackerConfig()
         self.mapper = mapper
+        self.loop_closer = loop_closer
         self.state = NOT_INITIALIZED
         self.last_frame: Optional[Frame] = None
         self.init_ref: Optional[Frame] = None
@@ -148,6 +153,7 @@ class Tracker:
         self.frame_id = 0
         self.n_inliers = 0
         self.frames_lost = 0
+        self.n_relocalizations = 0
         # RANSAC samples for two-view init: a generator seeded the way the
         # reference seeds its PRNG key (tracking.py:196)
         self._gen = torch.Generator().manual_seed(
@@ -224,8 +230,18 @@ class Tracker:
                     self._create_keyframe(frame)
                 self.last_frame = frame
         elif self.state == RECENTLY_LOST:
-            if self._relocalize(frame):  # raises: relocalization is a later slice
+            if self._relocalize(frame):
                 self.state = OK
+                self._track_local_map(frame)
+                if frame.R is not None:
+                    self.last_frame = frame
+                    self.frames_since_kf = self.cfg.max_frames_between_kf  # re-anchor soon
+                else:
+                    self._on_tracking_failure()
+            else:
+                self.frames_lost += 1
+                if self.frames_lost > self.cfg.recently_lost_frames:
+                    self.state = LOST
         if frame.R is not None:
             self.trajectory.append(self._traj_entry(frame, timestamp))
         self.frame_id += 1
@@ -508,10 +524,127 @@ class Tracker:
         ids[:n] = local_mps[:n]
         self._local_ids = ids
 
+    # ------------------------------------------------------------------
+    # relocalization (Tracking::Relocalization)
+    # ------------------------------------------------------------------
     def _relocalize(self, frame) -> bool:
-        raise NotImplementedError(
-            "tracking lost on a mature map: relocalization (place recognition + "
-            "PnP RANSAC) is ROADMAP.md Queue 1 item 14, not yet ported")
+        """Global-descriptor retrieval -> brute-force matching against each
+        candidate keyframe's observed slots (the row_top2 kernel on CUDA,
+        ratio 0.9) -> batched PnP RANSAC -> pose optimization, with the
+        widened-projection retry for a candidate landing 10-50 inliers.
+        The PnP samples come from a generator seeded by the frame id, as
+        the reference seeds its key."""
+        cfg = self.cfg
+        store = self.store
+        f = frame.feats
+        cands = retrieval.detect_relocalization_candidates(store, frame.host.global_desc,
+                                                           device=self.device)
+        for c in cands[:5]:
+            kf_obs = store.kf_obs[c]
+            maskB = (kf_obs >= 0) & store.kf_mask[c]
+            if int(maskB.sum()) < cfg.min_reloc_matches:
+                continue
+            idx, _ = search.search_brute_force(
+                f.desc, f.mask, self._t(store.kf_desc[c]), self._t(maskB, torch.bool),
+                max_dist=cfg.th_low, ratio=0.9)
+            idx = idx.cpu().numpy()
+            slots = np.nonzero(idx >= 0)[0]
+            if len(slots) < cfg.min_reloc_matches:
+                continue
+            mp_ids = kf_obs[idx[slots]]
+            ok_mp = store.mp_valid[mp_ids]
+            slots, mp_ids = slots[ok_mp], mp_ids[ok_mp]
+            if len(slots) < cfg.min_reloc_matches:
+                continue
+
+            N = store.n_slots
+            n = len(slots)
+            pts = np.zeros((N, 3), np.float32)
+            uv = np.zeros((N, 2), np.float32)
+            inv_s2 = np.ones(N, np.float32)
+            val = np.zeros(N, bool)
+            pts[:n] = store.mp_pos[mp_ids]
+            uv[:n] = frame.host.xy[slots]
+            inv_s2[:n] = 1.0 / (1.2 ** (2.0 * frame.host.octave[slots]))
+            val[:n] = True
+            val_t = self._t(val, torch.bool)
+            picks = pnp.draw_picks(val_t, cfg.pnp_hyps, 6,
+                                   torch.Generator().manual_seed(self.frame_id))
+            res = pnp.pnp_ransac(self.cam.kind, self.cam.params, self._t(pts), self._t(uv),
+                                 self._t(inv_s2), val_t, picks)
+            if int(res["n_inliers"]) < cfg.min_reloc_pnp_inliers:
+                continue
+
+            obs = np.full(N, -1, np.int32)
+            obs[slots] = mp_ids
+            frame.obs = obs
+            n_in = self._pose_optimize_frame(frame, res["R"].cpu().numpy(),
+                                             res["t"].cpu().numpy())
+            if n_in < cfg.min_reloc_pnp_inliers:
+                frame.R = None
+                frame.t = None
+                continue
+            if n_in < cfg.min_reloc_inliers:
+                n_in = self._reloc_escalate(frame, c, n_in)
+            if n_in >= cfg.min_reloc_inliers:
+                self.ref_kf = int(c)
+                self.velocity = None
+                self._local_ids = None
+                self.n_inliers = n_in
+                self.n_relocalizations += 1
+                return True
+            frame.R = None
+            frame.t = None
+        return False
+
+    def _reloc_escalate(self, frame, c: int, n_in: int) -> int:
+        """Widened-projection retry for a failing candidate
+        (Tracking.cc:3141-3169): project the candidate's points at the
+        estimated pose with a coarse window (10 px, TH_HIGH), re-optimize;
+        at 30-50 inliers one fine pass (3 px, TH_LOW) and a last
+        optimization."""
+        cfg = self.cfg
+        store = self.store
+        kf_obs = store.kf_obs[c]
+        mp_c = kf_obs[np.nonzero((kf_obs >= 0) & store.kf_mask[c])[0]]
+        mp_c = np.unique(mp_c[store.mp_valid[mp_c]])
+        if len(mp_c) == 0:
+            return n_in
+        pos, desc, valid, ids_p = self._pad_mps(mp_c, store.n_slots)
+        valid = valid.cpu().numpy()
+        f = frame.feats
+
+        def extra_pass(radius, max_dist):
+            """One guided-projection pass over the frame's free slots,
+            excluding points the frame already carries; returns the number
+            of observations claimed."""
+            free = frame.host.mask & (frame.obs < 0)
+            val2 = valid & ~np.isin(ids_p, frame.obs[frame.obs >= 0])
+            idx, _, _ = search.search_by_projection(
+                self.cam.kind, self.cam.params, (self.cam.width, self.cam.height),
+                self._t(frame.R), self._t(frame.t), pos, desc, self._t(val2, torch.bool),
+                f.xy, f.desc, f.octave, self._t(free, torch.bool),
+                radius=float(radius), max_dist=float(max_dist))
+            idx = idx.cpu().numpy()
+            new_slots = np.nonzero((idx >= 0) & free)[0]
+            if len(new_slots) == 0:
+                return 0
+            new_ids = ids_p[idx[new_slots]]
+            _, first = np.unique(new_ids, return_index=True)
+            uniq = np.zeros(len(new_ids), bool)
+            uniq[first] = True
+            frame.obs[new_slots[uniq]] = new_ids[uniq]
+            return int(uniq.sum())
+
+        n_add = extra_pass(10.0, M.TH_HIGH)
+        if n_in + n_add < cfg.min_reloc_inliers:
+            return n_in
+        n_in = self._pose_optimize_frame(frame, frame.R, frame.t)
+        if 30 < n_in < cfg.min_reloc_inliers:
+            n_add = extra_pass(3.0, M.TH_LOW)
+            if n_in + n_add >= cfg.min_reloc_inliers:
+                n_in = self._pose_optimize_frame(frame, frame.R, frame.t)
+        return n_in
 
     def _pad_mps(self, mp_ids, cap, with_stats=False):
         store = self.store
@@ -624,7 +757,13 @@ class Tracker:
         self._local_ids = None
         if self.mapper is not None:
             self.mapper.process_keyframe(k)
-            # tracking continues from the BA-refined keyframe pose
+        if self.loop_closer is not None:
+            # LocalMapping -> LoopClosing handoff, inline; a correction moved
+            # the whole map, so the motion model restarts
+            if self.loop_closer.process_keyframe(k):
+                self.velocity = None
+        if self.mapper is not None or self.loop_closer is not None:
+            # tracking continues from the BA/loop-refined keyframe pose
             frame.R = store.kf_R[k].copy()
             frame.t = store.kf_t[k].copy()
             frame.obs = store.kf_obs[k].copy()

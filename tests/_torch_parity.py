@@ -1,29 +1,73 @@
 """Shared scene and system builders for the port's parity tests
 (tests/test_torch_*.py): the same numpy inputs go through the JAX reference
 (hfnet_slam_tpu) and the PyTorch port (hfnet_slam_torch, device="cpu").
-Both packages are built from the one scene definition,
-`hfnet_slam_torch.scenes.browse_spec`."""
+Both packages are built from the one scene definition in
+`hfnet_slam_torch.scenes` (browse_spec, reloc_spec, loop_spec)."""
 import numpy as np
 
-from hfnet_slam_torch.scenes import PRODUCTION, SMALL, browse_pose, browse_spec  # noqa: F401
+from hfnet_slam_torch.scenes import (BLACKOUT, LOOP_PRODUCTION, LOOP_SMALL, PRODUCTION,  # noqa: F401
+                                     SMALL, browse_pose, browse_spec, loop_spec, reloc_spec,
+                                     ring_pose, ring_world)
 
 
-def build(pkg, device=None, size=SMALL):
-    """(system, extractor) of package `pkg` ("tpu" or "torch") at `size`."""
-    if pkg == "torch":
-        from hfnet_slam_torch.scenes import browse_system
-        return browse_system(size, device)
+def T(x, dtype=None):
+    """numpy (or a read-only jax array) -> a CPU torch tensor."""
+    import torch
+    return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+def cams():
+    """The scenes' pinhole camera in both packages: (reference, port)."""
+    from hfnet_slam_tpu.geometry import cameras as JC
+    from hfnet_slam_torch.geometry import cameras as TC
+    return (JC.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480),
+            TC.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu"))
+
+
+def gumbel_picks(key, valid, n_hyps, k):
+    """The reference's in-graph RANSAC sampler (optim/sim3.py:95-97,
+    optim/pnp.py:71-73) run on its own, so the port gets the same draws."""
+    import jax
+    import jax.numpy as jnp
+    g = jax.random.gumbel(jnp.asarray(key, jnp.uint32), (n_hyps, len(valid)))
+    g = jnp.where(jnp.asarray(valid)[None, :], g, -jnp.inf)
+    return np.asarray(jax.lax.top_k(g, k)[1])
+
+
+def _jax_system(sp, world):
     from hfnet_slam_tpu.geometry import cameras
-    from hfnet_slam_tpu.models.fake import FakeExtractor, SyntheticWorld
+    from hfnet_slam_tpu.models.fake import FakeExtractor
     from hfnet_slam_tpu.slam.local_mapping import MapperConfig
+    from hfnet_slam_tpu.slam.loop_closing import LoopCloserConfig
     from hfnet_slam_tpu.slam.system import SLAMSystem, SystemConfig
     from hfnet_slam_tpu.slam.tracking import TrackerConfig
-    sp = browse_spec(size)
     cam = cameras.pinhole(**sp["cam"])
-    ext = FakeExtractor(SyntheticWorld.cloud(**sp["world"]), cam, **sp["ext"])
+    ext = FakeExtractor(world, cam, **sp["ext"])
     cfg = SystemConfig(**sp["system"], tracker=TrackerConfig(**sp["tracker"]),
-                       mapper=MapperConfig(**sp["mapper"]))
+                       mapper=MapperConfig(**sp["mapper"]),
+                       loop=LoopCloserConfig(**sp.get("loop", {})))
     return SLAMSystem(cam, ext, cfg), ext
+
+
+def build(pkg, device=None, size=SMALL, spec=browse_spec):
+    """(system, extractor) of package `pkg` ("tpu" or "torch") at `size`,
+    configured by `spec` (browse_spec or reloc_spec)."""
+    if pkg == "torch":
+        from hfnet_slam_torch.scenes import browse_system
+        return browse_system(size, device, spec=spec)
+    from hfnet_slam_tpu.models.fake import SyntheticWorld
+    sp = spec(size)
+    return _jax_system(sp, SyntheticWorld.cloud(**sp["world"]))
+
+
+def build_loop(pkg, device=None, size=LOOP_SMALL):
+    """(system, extractor) of the loop circuit of package `pkg` at `size`."""
+    if pkg == "torch":
+        from hfnet_slam_torch.scenes import loop_system
+        return loop_system(size, device)
+    from hfnet_slam_tpu.models.fake import SyntheticWorld
+    sp = loop_spec(size)
+    return _jax_system(sp, SyntheticWorld(*ring_world(**sp["world"])))
 
 
 def run(sys_, ext, lo, hi, jolt_at=None):
@@ -37,3 +81,31 @@ def run(sys_, ext, lo, hi, jolt_at=None):
             gt.append(-R.T @ t)
             ids.append(i)
     return np.asarray(est), np.asarray(gt), ids
+
+
+def run_loop(sys_, ext, size, n=None):
+    """Track the circuit's first n frames (all by default). Returns the
+    scale-corrected ATE of the track-time poses (pre) and of the poses
+    rebuilt through the final map's keyframes (post), bench.py's sync
+    protocol, and the number of tracked frames."""
+    from hfnet_slam_torch.evaluation import ate
+    from hfnet_slam_torch.utils import trajectory as TJ
+
+    n = n or size["frames"]
+    live, gt = [], []
+    for i in range(n):
+        R, t = ring_pose(i, size["frames"], size["total_angle"])
+        _, Re, te = sys_.track_features(ext(R, t), 0.05 * i)
+        if Re is not None:
+            live.append(-np.asarray(Re).T @ np.asarray(te))
+            gt.append(-R.T @ t)
+    pre = float(ate.ate_rmse(np.asarray(live), np.asarray(gt), with_scale=True))
+    rec, _, _ = TJ.recovered_resolved(sys_.trajectory, store=sys_.store)
+    rc, rg = [], []
+    for ts, R_e, t_e in rec:
+        R, t = ring_pose(int(round(ts / 0.05)), size["frames"], size["total_angle"])
+        rc.append(-np.asarray(R_e).T @ np.asarray(t_e))
+        rg.append(-R.T @ t)
+    post = float(ate.ate_rmse(np.asarray(rc), np.asarray(rg), with_scale=True)) \
+        if len(rc) > 20 else float("nan")
+    return pre, post, len(live)

@@ -1,13 +1,22 @@
-"""Run the jolted browse slice through both packages on the CPU and print
-one JSON line per package: frames tracked, first tracked frame, keyframes,
-map points, brute-force matcher calls, scale-corrected ATE.
+"""Run a scene through both packages on the CPU and print one JSON line per
+package.
 
     JAX_PLATFORMS=cpu python tests/compare_slice_cpu.py --size small
     JAX_PLATFORMS=cpu python tests/compare_slice_cpu.py --size production
+    JAX_PLATFORMS=cpu python tests/compare_slice_cpu.py --scene loop --size small
 
-small: 512 slots, 64-d, 60 frames, jolt at 40 (tests/test_torch_slam.py);
-production: 1024 slots, 256-d, 4096-d global, 120 frames, jolt at 80
-(chip_smoke.py's run, here on the CPU)."""
+browse (the default): the jolted browse slice; frames tracked, first tracked
+frame, keyframes, map points, brute-force matcher calls, scale-corrected
+ATE. small: 512 slots, 64-d, 60 frames, jolt at 40
+(tests/test_torch_slam.py); production: 1024 slots, 256-d, 4096-d global,
+120 frames, jolt at 80 (chip_smoke.py's run, here on the CPU).
+
+loop: the loop circuit, sync mode, loop closing on; frames tracked, loop
+stats, loop edges, brute-force calls by (NA, NB), pre- and post-correction
+ATE by bench.py's sync protocol. small: tests/test_loop.py's 170 frames
+(~50 s for the reference, ~35 s for the port); production: bench.py's 330
+frames at 1024 slots (chip_smoke.py's circuit; compiles the reference at
+full width, which is heavy on host memory)."""
 import argparse
 import json
 import os
@@ -20,16 +29,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import torch  # noqa: E402
 
-from _torch_parity import PRODUCTION, SMALL, build, run  # noqa: E402
+from _torch_parity import (LOOP_PRODUCTION, LOOP_SMALL, PRODUCTION, SMALL, build,  # noqa: E402
+                           build_loop, run, run_loop)
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=["browse", "loop"], default="browse")
     ap.add_argument("--size", choices=["small", "production"], default="small")
     ap.add_argument("--threads", type=int, default=4)
     args = ap.parse_args()
     jax.config.update("jax_default_matmul_precision", "highest")
     torch.set_num_threads(args.threads)
+    if args.scene == "loop":
+        return compare_loop(LOOP_SMALL if args.size == "small" else LOOP_PRODUCTION, args.size)
     size, n, jolt = (SMALL, 60, 40) if args.size == "small" else (PRODUCTION, 120, 80)
     from hfnet_slam_torch.evaluation import ate
 
@@ -57,6 +70,32 @@ def main():
             "state": int(sys_.tracker.state), "keyframes": int(sys_.store.kf_valid.sum()),
             "map_points": int(sys_.store.mp_valid.sum()), "brute_force_calls": len(calls),
             "ate_m": float(ate.ate_rmse(est, gt, with_scale=True))}), flush=True)
+
+
+def compare_loop(size, name):
+    for pkg in ("tpu", "torch"):
+        search = __import__(f"hfnet_slam_{pkg}.slam.search", fromlist=["search"])
+        calls = {}
+        real = search.search_brute_force
+
+        def spy(dA, mA, dB, mB, **kw):
+            key = f"{dA.shape[0]},{dB.shape[0]}"
+            calls[key] = calls.get(key, 0) + 1
+            return real(dA, mA, dB, mB, **kw)
+
+        search.search_brute_force = spy
+        try:
+            sys_, ext = build_loop(pkg, device="cpu", size=size)
+            pre, post, n_tracked = run_loop(sys_, ext, size)
+        finally:
+            search.search_brute_force = real
+        print(json.dumps({
+            "package": "hfnet_slam_" + pkg, "scene": "loop", "size": name,
+            "frames": size["frames"], "frames_tracked": n_tracked,
+            "loop_stats": sys_.loop_closer.stats,
+            "loop_edges": [list(map(int, e)) for e in sys_.store.loop_edges],
+            "keyframes": int(sys_.store.kf_valid.sum()), "brute_force_calls": calls,
+            "ate_pre_m": pre, "ate_post_m": post}), flush=True)
 
 
 if __name__ == "__main__":

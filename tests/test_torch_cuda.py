@@ -1,4 +1,5 @@
-"""The hand-written row_top2 kernel against its plain version, on the card.
+"""The hand-written row_top2 kernel against its plain version, on the card,
+and the loop-closing and relocalization paths that launch it.
 
 These tests need an NVIDIA card (marker `cuda`) and skip without one. The
 file imports neither jax nor hfnet_slam_tpu, so it runs on the GPU machine,
@@ -53,6 +54,7 @@ def _assert_same(A, Bm, m):
 
 
 @pytest.mark.parametrize("shape", [(1024, 1024, 256), (1000, 777, 256), (130, 4097, 64),
+                                   (1024, 2048, 256), (2048, 1024, 256),
                                    (1024, 4096, 256), (4096, 1024, 256), (1024, 8192, 256),
                                    (37, 1, 16), (100, 300, 13)])
 def test_kernel_matches_plain(cuda, shape):
@@ -107,3 +109,41 @@ def test_kernel_rejects_non_contiguous(cuda):
     A, Bm, m = _problem(64, 64, 32)
     with pytest.raises(ValueError, match="contiguous"):
         B.row_top2(A.t().contiguous().t(), Bm, m)
+
+
+def test_relocalization_launches_the_kernel(cuda):
+    """Tracker._relocalize on the card: retrieval, the brute-force matcher
+    against the candidate keyframe (row_top2 both ways at (512,512,64)),
+    PnP RANSAC and pose optimization recover a frame of the map."""
+    from hfnet_slam_torch.scenes import SMALL, browse_pose, browse_system, reloc_spec
+    from hfnet_slam_torch.slam.tracking import Frame
+
+    sys_, ext = browse_system(SMALL, device=cuda, spec=reloc_spec)
+    for i in range(40):
+        sys_.track_features(ext(*browse_pose(i)), 0.05 * i)
+    before = B.shape_launches[(512, 512, 64)]
+    frame = Frame(feats=ext(*browse_pose(30)), timestamp=99.0)
+    assert sys_.tracker._relocalize(frame)
+    assert sys_.tracker.n_relocalizations == 1 and int((frame.obs >= 0).sum()) >= 30
+    assert B.shape_launches[(512, 512, 64)] >= before + 2
+
+
+def test_loop_circuit_corrects_through_the_kernel(cuda):
+    """The SMALL loop circuit on the card until its first correction: loop
+    association launches row_top2 at the window width, both ways."""
+    from hfnet_slam_torch.scenes import LOOP_SMALL, loop_system, ring_pose
+
+    sys_, ext = loop_system(LOOP_SMALL, device=cuda)
+    win = LOOP_SMALL["loop"]["window_mp_cap"]
+    before = B.shape_launches[(512, win, 64)], B.shape_launches[(win, 512, 64)]
+    n = LOOP_SMALL["frames"]
+    for i in range(n):
+        sys_.track_features(ext(*ring_pose(i, n, LOOP_SMALL["total_angle"])), 0.05 * i)
+        if sys_.loop_closer.stats["corrected"]:
+            break
+    assert sys_.loop_closer.stats["corrected"] == 1, sys_.loop_closer.stats
+    assert B.shape_launches[(512, win, 64)] > before[0]
+    assert B.shape_launches[(win, 512, 64)] > before[1]
+    store = sys_.store
+    assert store._device_map.pos.device.type == "cuda"
+    assert torch.isfinite(torch.from_numpy(store.kf_t[store.kf_valid])).all()
