@@ -24,12 +24,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      shape (loop association runs it at (1024,2048,256) and swapped);
   6. relocalization: the browse scene with frames 55-61 featureless
      (tests/test_reloc.py's blackout) at production widths, 90 frames: the
-     track must relocalize into the same map through the kernel.
+     track must relocalize into the same map through the kernel;
+  7. extraction: scenes.euroc_hfnet_system (HF-Net with seeded random
+     weights at EuRoC's 752x480, 1000 features, 4 levels, 1024 slots) on a
+     seeded textured image and a copy shifted by (16, 8) px: the Features
+     record's fields, norms, bounds, NMS separation and determinism; the
+     same extractor code on the CPU against the card; both frames through
+     slam/search.search_brute_force (row_top2 at (1024,1024,256) both
+     ways, re-checked against its plain version); 20 frames of a texture
+     moving 4 px a frame, shaken by 200 px every other frame from frame
+     12 on, which sends tracking to the reference keyframe through
+     row_top2, through
+     track_monocular, plainly and through utils/prefetch.pipeline_frames
+     (the kernel re-checked on that path's first matcher inputs);
+     extraction times in float32 and bfloat16 (p50 of synced calls,
+     sustained, a forward / post-processing split per level by CUDA
+     events) and the bf16 keypoints' overlap with the float32 ones.
 Phases 5 and 6 keep the inputs of their first loop-association and
 relocalization matcher calls and, after the phase, hold the kernel against
 its plain version on them (matched indices that differ, and by how much in
 float64). The kernel's main-path launch counts are zeroed just before each
-of phases 4-6 and read just after. The line before the last is one JSON
+of phases 4-7's paths and read just after. The line before the last is one JSON
 object describing every kernel; the last line is {"ok": true, "device":
 {...}}. Needs one CUDA card and no network. Without a card, or without the
 repository beside it, it exits non-zero before printing a result.
@@ -45,12 +60,23 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# bytes/s, TF32 tensor-core FLOP/s and float32 CUDA-core FLOP/s of one
-# H100 SXM at 700 W (NVIDIA's data sheet, dense)
-H100_BYTES_PER_S = 3.35e12
-H100_TF32_FLOPS = 495e12
-H100_FP32_FLOPS = 67e12
 TOL_SIM = 1e-5  # f32 over <= 256 unit-norm terms, summed in a different order
+# the extraction phase holds the card's extractor to the CPU parity tests'
+# tolerances (tests/test_torch_extractor.py): at least 99% of slots with the
+# same mask and xy within 1e-3 px; descriptors, scores and the global
+# descriptor within 1e-4 (float32 convs summed in another order)
+EXTRACT_MIN_SHARED = 0.99
+EXTRACT_TOL_XY = 1e-3
+EXTRACT_TOL_DESC = 1e-4
+SHIFT = (16, 8)  # px, (x, y): the second frame of the extraction phase
+# (frame, px): a hand-held shake in the extraction phase's tracked run. From
+# that frame on, every other frame sits 200 px further along the texture,
+# far beyond the motion model's 30 px search window, so the image jumps
+# 200 px on every frame. Random-weight descriptors are alike enough that the
+# motion model may follow one jump on false matches (after a single lasting
+# 100 px jolt, 3 of 5 runs on an H100 never launched row_top2), not eight:
+# the tracker falls back to the reference keyframe through row_top2
+SHAKE = (12, 200)
 TIMED_SHAPES = [(1024, 1024, 256), (1024, 2048, 256), (2048, 1024, 256), (1024, 4096, 256),
                 (4096, 1024, 256), (1024, 8192, 256)]
 
@@ -156,6 +182,8 @@ def _bound_ms(NA, NB, D):
     products per multiply-add (3xTF32), against the bytes (inputs once,
     outputs once). Also returns the float32 CUDA-core bound of the
     operations, which a kernel without tensor cores is held to."""
+    from hfnet_slam_torch.tools.peaks import H100_BYTES_PER_S, H100_FP32_FLOPS, H100_TF32_FLOPS
+
     flops = 2.0 * NA * NB * D
     nbytes = 4.0 * (NA * D + NB * D) + NB + 12.0 * NA
     t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
@@ -572,6 +600,245 @@ def phase_reloc(torch, smi):
     return launches, by_shape, rech, reloc_calls.launches
 
 
+def _slot_agreement(torch, f, g):
+    """(share of f's valid slots whose slot in g has the same mask and xy
+    within EXTRACT_TOL_XY, mask of those slots)."""
+    same = (f.mask == g.mask) & ((f.xy - g.xy).abs().amax(1) <= EXTRACT_TOL_XY)
+    ok = same & f.mask
+    return float(ok.sum()) / max(int(f.mask.sum()), 1), ok
+
+
+def _keypoint_overlap(torch, f, g, tol=1.0):
+    """Share of f's valid keypoints with a valid keypoint of g at the same
+    octave within tol px."""
+    hits, n = 0, 0
+    for o in range(int(f.octave.max()) + 1):
+        a = f.xy[f.mask & (f.octave == o)]
+        b = g.xy[g.mask & (g.octave == o)]
+        n += len(a)
+        if len(a) and len(b):
+            hits += int((torch.cdist(a, b).amin(1) <= tol).sum())
+    return hits / max(n, 1)
+
+
+def _extraction_times(torch, ext, image, n=30, warm=5, reps=3):
+    """(p50 ms of n synced calls after warm-up, sustained ms: best of `reps`
+    runs of n back-to-back calls with one sync, as bench.py measures)."""
+    for _ in range(warm):
+        ext(image)
+    torch.cuda.synchronize()
+    synced = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        ext(image)
+        torch.cuda.synchronize()
+        synced.append((time.perf_counter() - t0) * 1e3)
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = ext(image)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3 / n)
+    del out
+    return float(np.percentile(synced, 50)), best
+
+
+def _level_split(torch, ext, image, n=10):
+    """Mean ms per level of the network forward and of the post-processing
+    (NMS, selection, refinement, sampling), by CUDA events recorded around
+    the extractor's two per-level steps over n back-to-back calls."""
+    marks = []
+
+    def timed(kind, fn):
+        def run(lvl, *args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(lvl, *args)
+            b.record()
+            marks.append((f"L{lvl} {kind}", a, b))
+            return out
+        return run
+
+    ext._forward_level = timed("forward", ext._forward_level)
+    ext._post_level = timed("post", ext._post_level)
+    try:
+        for _ in range(n):
+            ext(image)
+        torch.cuda.synchronize()
+    finally:
+        del ext._forward_level, ext._post_level
+    split = {}
+    for name, a, b in marks:
+        split.setdefault(name, []).append(a.elapsed_time(b))
+    return {k: float(np.mean(v)) for k, v in split.items()}
+
+
+def _track_run(torch, sys_, frames, pipelined):
+    """Feed frames through track_monocular, or through pipeline_frames and
+    track_features. Returns (states, frame ms, launches, launches by shape,
+    the features the pipeline handed over, the inputs of the run's first
+    brute-force matcher call)."""
+    from hfnet_slam_torch.utils.prefetch import pipeline_frames
+
+    torch.cuda.synchronize()
+    reset_counts()
+    states, ms, handed = [], [], []
+    with MatcherCalls(lambda dB: True) as calls:
+        if pipelined:
+            t0 = time.perf_counter()
+            for i, (_, feats) in enumerate(pipeline_frames(sys_.extractor, frames)):
+                st, _, _ = sys_.track_features(feats, 0.05 * i)
+                handed.append(feats)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ms.append((t1 - t0) * 1e3)
+                t0 = t1
+                states.append(int(st))
+        else:
+            for i, img in enumerate(frames):
+                t0 = time.perf_counter()
+                st, _, _ = sys_.track_monocular(img, 0.05 * i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                states.append(int(st))
+    launches, by_shape = read_counts()
+    return states, ms, launches, by_shape, handed, calls.first
+
+
+def phase_extraction(torch, smi):
+    """HF-Net extraction on the card at EuRoC's size, behind the tracker."""
+    from hfnet_slam_torch.models.extractor import HFExtractor
+    from hfnet_slam_torch.scenes import EUROC_HFNET, euroc_hfnet_system, textured_image
+    from hfnet_slam_torch.slam import search
+    from hfnet_slam_torch.slam.tracking import TrackerConfig
+    from hfnet_slam_torch.tools import extract_breakdown as XB
+    from hfnet_slam_torch.tools.peaks import H100_FP32_FLOPS
+
+    sys_ = euroc_hfnet_system()  # device=None: CUDA
+    ext = sys_.extractor
+    H, W = ext.image_hw
+    N = ext.pad_to
+    dx, dy = SHIFT
+    n_frames, step = 20, 4
+    shake_at, shake = SHAKE
+    canvas = textured_image(np.random.default_rng(0), H + dy,
+                            W + max(dx, step * n_frames + shake))
+    img_a = canvas[dy:dy + H, dx:dx + W]  # the second frame sees it moved by (+dx, +dy)
+    img_b = canvas[:H, :W]
+
+    fa, fb = ext(img_a), ext(img_b)
+    torch.cuda.synchronize()
+    types = (torch.float32, torch.float32, torch.int32, torch.float32, torch.bool, torch.float32)
+    for f in (fa, fb):
+        check(all(x.device.type == "cuda" for x in f), "a Features field is not on the card")
+        check(tuple(x.dtype for x in f) == types, f"Features dtypes {[x.dtype for x in f]}")
+        check(f.xy.shape == (N, 2) and f.desc.shape == (N, 256) and
+              f.global_desc.shape == (4096,), "Features shapes")
+        check(all(bool(torch.isfinite(x).all()) for x in (f.xy, f.score, f.desc, f.global_desc)),
+              "NaN/inf in the features")
+        m = f.mask
+        check(int(m.sum()) >= 500, f"only {int(m.sum())} valid keypoints")
+        nerr = float((torch.linalg.norm(f.desc[m], dim=1) - 1).abs().max())
+        check(nerr <= 1e-4, f"valid descriptors off unit norm by {nerr}")
+        gerr = abs(float(torch.linalg.norm(f.global_desc)) - 1)
+        check(gerr <= 1e-4, f"global descriptor off unit norm by {gerr}")
+        xy = f.xy[m]
+        check(bool((xy >= 0).all() & (xy[:, 0] < W).all() & (xy[:, 1] < H).all()),
+              "a keypoint outside the image")
+        l0 = f.xy[m & (f.octave == 0)]
+        d = torch.cdist(l0, l0) + 1e9 * torch.eye(len(l0), device=l0.device)
+        check(float(d.min()) > 4.0, f"level-0 keypoints {float(d.min())} px apart (NMS)")
+    again = ext(img_a)
+    check(all(torch.equal(x, y) for x, y in zip(fa, again)), "two calls on one image differ")
+
+    # the same port code with the same weights on the CPU
+    ext_cpu = HFExtractor(ext.net, (H, W), **EUROC_HFNET, device="cpu")
+    fc = ext_cpu(img_a)
+    share, ok = _slot_agreement(torch, fa.to("cpu"), fc)
+    desc_err = float((fa.desc.cpu() - fc.desc)[ok].abs().max())
+    score_err = float((fa.score.cpu() - fc.score)[ok].abs().max())
+    gdesc_err = float((fa.global_desc.cpu() - fc.global_desc).abs().max())
+    del ext_cpu
+    cpu = {"valid_slots_card": int(fa.mask.sum()), "valid_slots_cpu": int(fc.mask.sum()),
+           "share_xy_within_1e-3": share, "desc_max_abs_err": desc_err,
+           "score_max_abs_err": score_err, "global_desc_max_abs_err": gdesc_err}
+    log("extraction card vs cpu: " + json.dumps(cpu))
+    check(share >= EXTRACT_MIN_SHARED, f"card and CPU agree on {share:.4f} of the slots")
+    check(max(desc_err, score_err, gdesc_err) <= EXTRACT_TOL_DESC,
+          f"card vs CPU errors {desc_err}, {score_err}, {gdesc_err} > {EXTRACT_TOL_DESC}")
+
+    # the two frames through the brute-force matcher, as reference-keyframe
+    # tracking and relocalization call it
+    kw = dict(max_dist=TrackerConfig().th_low, ratio=0.9)
+    reset_counts()
+    idx, _ = search.search_brute_force(fa.desc, fa.mask, fb.desc, fb.mask, **kw)
+    torch.cuda.synchronize()
+    n_match, shapes_match = read_counts()
+    check(n_match >= 2 and shapes_match.get(f"{N},{N},256", 0) >= 2,
+          f"row_top2 launched {shapes_match} on the HF-Net descriptors, want >= 2 at "
+          f"({N},{N},256)")
+    rech = recheck(torch, "extraction matcher", ((fa.desc, fa.mask, fb.desc, fb.mask), kw))
+    hit = idx >= 0
+    moved = fb.xy[idx[hit].long()] - fa.xy[hit]
+    shift = torch.tensor([float(dx), float(dy)], device=moved.device)
+    consistent = float((torch.linalg.norm(moved - shift, dim=1) < 1.5).float().mean()) \
+        if bool(hit.any()) else 0.0
+
+    # 20 frames of a texture moving 4 px a frame, shaken from frame 12 on,
+    # plainly and pipelined
+    offs = [step * i + (shake if i >= shake_at and (i - shake_at) % 2 == 0 else 0)
+            for i in range(n_frames)]
+    frames = [np.ascontiguousarray(canvas[:H, o:o + W]) for o in offs]
+    st_plain, ms_plain, n_plain, shapes_plain, _, track_call = _track_run(
+        torch, sys_, frames, False)
+    sys2 = euroc_hfnet_system()
+    st_pipe, ms_pipe, n_pipe, shapes_pipe, handed, _ = _track_run(torch, sys2, frames, True)
+    for img, feats in zip(frames, handed):
+        check(all(torch.equal(x, y) for x, y in zip(feats, ext(img))),
+              "features handed over by pipeline_frames differ from a direct call")
+    del sys2, handed
+    for name, n, shapes in (("plain", n_plain, shapes_plain), ("pipelined", n_pipe, shapes_pipe)):
+        check(n >= 2 and shapes.get(f"{N},{N},256", 0) >= 2,
+              f"track_monocular ({name}) launched row_top2 {shapes} in the shake, want "
+              f">= 2 at ({N},{N},256)")
+    rech_track = recheck(torch, "extraction tracking", track_call)
+
+    # times: float32 and bfloat16, the image already on the card as bench.py has it
+    img_dev = torch.from_numpy(img_a).cuda()
+    ext_bf16 = HFExtractor(ext.net, (H, W), **EUROC_HFNET, dtype=torch.bfloat16)
+    times = {}
+    for name, e in (("float32", ext), ("bfloat16", ext_bf16)):
+        p50, sustained = _extraction_times(torch, e, img_dev)
+        times[name] = {"p50_ms": p50, "sustained_ms": sustained,
+                       "level_split_ms": _level_split(torch, e, img_dev)}
+    f16 = ext_bf16(img_a)
+    overlap = _keypoint_overlap(torch, fa, f16)
+    costs = [XB.forward_cost(h, w, lvl == 0) for lvl, (h, w) in enumerate(ext.level_hw)]
+    flops = sum(c["flops"] for c in costs)
+    res = {
+        "image_hw": [H, W], "level_hw": ext.level_hw, "budgets": ext.budgets,
+        "valid_keypoints": [int(fa.mask.sum()), int(fb.mask.sum())],
+        "card_vs_cpu": cpu, "matcher": {"launches": n_match, "by_shape": shapes_match,
+                                        "mutual_matches": int(hit.sum()),
+                                        "shift_consistent_share": consistent},
+        "track_plain": {"states": st_plain, "frame_ms_p50": float(np.percentile(ms_plain, 50)),
+                        "row_top2_launches": n_plain, "by_shape": shapes_plain},
+        "track_pipelined": {"states": st_pipe,
+                            "frame_ms_p50": float(np.percentile(ms_pipe, 50)),
+                            "row_top2_launches": n_pipe, "by_shape": shapes_pipe},
+        "times": times, "bf16_keypoint_overlap": overlap,
+        "forward_gflop": flops / 1e9, "forward_fp32_bound_ms": flops / H100_FP32_FLOPS * 1e3,
+        "card": smi,
+    }
+    log("extraction: " + json.dumps(res))
+    track_shapes = {}
+    for d in (shapes_plain, shapes_pipe):
+        for k, v in d.items():
+            track_shapes[k] = track_shapes.get(k, 0) + v
+    return (n_plain + n_pipe, track_shapes, rech_track), (n_match, shapes_match, rech)
+
+
 def main():
     import torch
 
@@ -590,24 +857,33 @@ def main():
     n_loop, shapes_loop, rech_loop = phase_loop(torch, smi)
     t2 = time.perf_counter()
     n_reloc, shapes_reloc, rech_reloc, n_reloc_calls = phase_reloc(torch, smi)
+    t3 = time.perf_counter()
+    (n_track, shapes_track, rech_track), (n_call, shapes_call, rech_call) = \
+        phase_extraction(torch, smi)
     log(f"phase seconds: browse {t1 - t0:.1f}, loop {t2 - t1:.1f}, "
-        f"relocalization {time.perf_counter() - t2:.1f}")
+        f"relocalization {t3 - t2:.1f}, extraction {time.perf_counter() - t3:.1f}")
 
-    # the browse shape leads; the loop-association shapes follow under "shapes"
+    # the browse shape leads; the loop-association shapes follow under
+    # "shapes". Paths are main-path runs; "relocalization_calls" is the part
+    # of the relocalization count made inside relocalization, and
+    # "extraction_matcher_call" phase 7's direct search_brute_force call on
+    # two frames, which is not a main-path run and not in "launches"
     kern = {
         "name": "row_top2", "route": "cuda",
         "source": "hfnet_slam_torch/csrc/row_top2.cu",
         "replaces": "hfnet_slam_tpu/ops/pallas_match.py:52",
-        "launches": n_browse + n_loop + n_reloc,
+        "launches": n_browse + n_loop + n_reloc + n_track,
         "launches_by_path": {"browse": n_browse, "loop": n_loop, "relocalization": n_reloc,
-                             "relocalization_calls": n_reloc_calls},
+                             "relocalization_calls": n_reloc_calls,
+                             "extraction_track": n_track, "extraction_matcher_call": n_call},
         "launches_by_shape": {"browse": shapes_browse, "loop": shapes_loop,
-                              "relocalization": shapes_reloc},
+                              "relocalization": shapes_reloc, "extraction_track": shapes_track,
+                              "extraction_matcher_call": shapes_call},
         "max_abs_err": max_err,
         **timings[0],
         "bound_peak": "3xTF32 on the tensor cores, 495 TFLOP/s",
         "shapes": timings[1:],
-        "recheck_on_path_inputs": [rech_loop, rech_reloc],
+        "recheck_on_path_inputs": [rech_loop, rech_reloc, rech_track, rech_call],
     }
     log(smi)
     log(json.dumps({"kernels": [kern]}))

@@ -6,9 +6,11 @@ find, and imports neither `jax` nor any module of the reference:
 
   lie.py          -- SO3/SE3/Sim3 exp/log, retraction, orthonormalization
   geometry/       -- cameras, triangulation, two-view initialization
-  models/         -- the Features record and the deterministic fake extractor
-  ops/            -- descriptor matching, retrieval scores; the brute-force
-                     matcher kernel
+  models/         -- HF-Net (MobileNetV2 + NetVLAD), the pyramid extractor,
+                     the Features record and the deterministic fake extractor
+  ops/            -- keypoint selection and descriptor sampling, descriptor
+                     matching, retrieval scores; the brute-force matcher
+                     kernel
   optim/          -- pose-only LM, Schur-complement bundle adjustment, PnP
                      and Sim3 RANSAC, the Sim3 pose graph
   slam/           -- map store, device mirrors, tracking and relocalization,
@@ -16,8 +18,10 @@ find, and imports neither `jax` nor any module of the reference:
   native/         -- C++ host runtime (covisibility bookkeeping) via ctypes
   csrc/           -- hand-written CUDA kernels (built with nvcc at first use)
   evaluation/     -- ATE (Horn alignment)
-  utils/          -- trajectory recovery through reference keyframes
-  convert.py      -- map and tracker state carried over from the reference
+  utils/          -- trajectory recovery through reference keyframes,
+                     pipelined (prefetched) extraction
+  convert.py      -- HF-Net weights, map and tracker state carried over from
+                     the reference
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 CUDA device they raise instead of falling back to the CPU.

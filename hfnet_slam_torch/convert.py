@@ -1,21 +1,42 @@
-"""State carried over from the JAX reference package.
-
-The slice has no learned weights (the fake extractor stands in for HF-Net),
-so what crosses packages is the map and the tracker's frame state:
+"""State carried over from the JAX reference package: HF-Net's weights, the
+map and the tracker's frame state.
+  * hfnet_params_from_reference: the reference's HF-Net parameter tree
+    (hfnet.init_params / load_params / tools/convert_hfnet_weights.py), as
+    numpy, -> the port's HFNet state_dict;
   * store_from_reference: the exact .npz the reference's MapStore.save
     writes (hfnet_slam_tpu/slam/map.py, `_ARRAY_FIELDS`) -> the port's
     MapStore;
   * tracker_state_from_reference: the reference tracker's last-frame pose
     and observations, velocity, reference keyframe and local-map candidate
     ids, as numpy, applied to a port Tracker.
-Neither reads JAX arrays: the caller hands numpy (np.asarray) across.
+None of them reads JAX arrays: the caller hands numpy (np.asarray) across.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .models import hfnet
 from .slam.map import MapStore
 from .slam.tracking import OK, Frame, Tracker
+
+
+def hfnet_params_from_reference(tree) -> dict:
+    """The reference's nested HF-Net parameter tree (dicts and lists of numpy
+    arrays, HWIO convs, the (K*C, 4096) projection) -> a CPU state_dict for
+    the port's HFNet (`HFNet.from_state`): dense convs to OIHW, depthwise
+    convs to (mid,1,3,3), the projection transposed."""
+
+    def flatten(t, prefix=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from flatten(v, f"{prefix}{k}/")
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                yield from flatten(v, f"{prefix}{i}/")
+        else:
+            yield prefix[:-1], np.asarray(t)
+
+    return hfnet.state_from_flat(dict(flatten(tree)))
 
 
 def store_from_reference(npz_path_or_dict) -> MapStore:

@@ -15,6 +15,13 @@ start region is revisited and loop closing has drift to correct
 (LOOP_PRODUCTION: 330 frames over 2.2 laps at production widths, as the
 reference's sync circuit; LOOP_SMALL: tests/test_loop.py's 170-frame run).
 
+EuRoC with HF-Net (`euroc_hfnet_system`): the EuRoC MAV cam0 pinhole
+(752x480) with the HF-Net pyramid extractor at bench.py's headline
+configuration (1000 features, 4 levels at 1.2, threshold 0.01, 1024 slots)
+and randomly initialized weights drawn from a seeded generator: no HF-Net
+checkpoint is in the repository. `textured_image` draws the images it is
+driven with: Gaussian blobs from a seeded generator.
+
 Each `*_spec` is the one definition of a system as plain data; the port's
 builders and the parity tests' JAX builder both read it, so the two packages
 are driven with identical configurations.
@@ -22,9 +29,13 @@ are driven with identical configurations.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .device import resolve
 from .geometry import cameras
+from .models.extractor import HFExtractor
 from .models.fake import FakeExtractor, SyntheticWorld
+from .models.hfnet import HFNet
 from .slam.local_mapping import MapperConfig
 from .slam.loop_closing import LoopCloserConfig
 from .slam.system import SLAMSystem, SystemConfig
@@ -38,6 +49,11 @@ SMALL = dict(n_landmarks=1200, desc_dim=64, pad_to=512, max_per_frame=420,
 PRODUCTION = dict(n_landmarks=2600, desc_dim=256, pad_to=1024, max_per_frame=900,
                   k_max=256, m_max=16384, gdesc_dim=4096, local_mp_cap=2048,
                   ba_mp_cap=4096, ba_edge_cap=16384)
+
+# EuRoC MAV cam0 (sensor.yaml intrinsics; the distortion is not modelled)
+EUROC_CAM0 = dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375, width=752, height=480)
+# bench.py's pyramid_extraction_latency configuration (EuRoC.yaml:67-80)
+EUROC_HFNET = dict(n_features=1000, n_levels=4, scale_factor=1.2, threshold=0.01, pad_to=1024)
 
 # tests/test_reloc.py's blackout: frames 55-61 carry no features
 BLACKOUT = range(55, 62)
@@ -177,3 +193,35 @@ def production_browse_system(device=None):
     local and 4096-d global descriptors, a 256-keyframe / 16384-point map,
     bench.py's tracker and mapper caps."""
     return browse_system(PRODUCTION, device)
+
+
+def textured_image(rng, h, w):
+    """A grayscale image in [0,255] of random Gaussian blobs (one per 120
+    px, sigma 1.5-10 px, either sign) on a mid-grey ground, float32."""
+    n_blobs = h * w // 120
+    img = np.full((h, w), 128.0)
+    ys, xs = rng.uniform(0, h, n_blobs), rng.uniform(0, w, n_blobs)
+    sig = rng.uniform(1.5, 10.0, n_blobs)
+    amp = rng.uniform(-90.0, 90.0, n_blobs)
+    for y, x, s, a in zip(ys, xs, sig, amp):
+        r = int(3 * s) + 1
+        y0, y1 = max(int(y) - r, 0), min(int(y) + r + 1, h)
+        x0, x1 = max(int(x) - r, 0), min(int(x) + r + 1, w)
+        gy, gx = np.mgrid[y0:y1, x0:x1]
+        img[y0:y1, x0:x1] += a * np.exp(-((gy - y) ** 2 + (gx - x) ** 2) / (2 * s * s))
+    return np.clip(img, 0, 255).astype(np.float32)
+
+
+def euroc_hfnet_system(device=None, dtype=torch.float32, seed=0):
+    """SLAMSystem on EuRoC cam0 whose extractor is HF-Net (He-initialized
+    from a torch.Generator seeded with `seed`, on the device) at bench.py's
+    headline configuration, running in `dtype`; 1024 slots, 256-d local and
+    4096-d global descriptors. Feed it 480x752 grayscale images through
+    `track_monocular`; the extractor is `system.extractor`."""
+    dev = resolve(device)
+    cam = cameras.pinhole(**EUROC_CAM0, device=dev)
+    net = HFNet(torch.Generator(device=dev).manual_seed(seed))
+    ext = HFExtractor(net, (EUROC_CAM0["height"], EUROC_CAM0["width"]), **EUROC_HFNET,
+                      dtype=dtype, device=dev)
+    cfg = SystemConfig(n_slots=EUROC_HFNET["pad_to"], desc_dim=256, gdesc_dim=4096)
+    return SLAMSystem(cam, ext, cfg, device=dev)

@@ -64,8 +64,10 @@ def _check_slice(cfg: SystemConfig, imu_calib):
 
 
 class SLAMSystem:
-    """Monocular SLAM. `extractor(image) -> Features` is injected (the fake
-    extractor of models/fake.py in this slice)."""
+    """Monocular SLAM. `extractor(image) -> Features` is injected: the HF-Net
+    pyramid extractor of models/extractor.py (`track_monocular` takes
+    images), or the synthetic one of models/fake.py (whose "image" is the
+    ground-truth pose)."""
 
     def __init__(self, cam: cameras.Camera, extractor, cfg: SystemConfig = None,
                  imu_calib=None, device=None):

@@ -1,5 +1,6 @@
 """The hand-written row_top2 kernel against its plain version, on the card,
-and the loop-closing and relocalization paths that launch it.
+the loop-closing and relocalization paths that launch it, and the HF-Net
+extractor and its prefetch pipeline on the card.
 
 These tests need an NVIDIA card (marker `cuda`) and skip without one. The
 file imports neither jax nor hfnet_slam_tpu, so it runs on the GPU machine,
@@ -147,3 +148,104 @@ def test_loop_circuit_corrects_through_the_kernel(cuda):
     store = sys_.store
     assert store._device_map.pos.device.type == "cuda"
     assert torch.isfinite(torch.from_numpy(store.kf_t[store.kf_valid])).all()
+
+
+def _small_extractors(cuda):
+    """HF-Net with seeded random weights, at tests/test_hfnet.py's extractor
+    config, on the card and on the CPU."""
+    from hfnet_slam_torch.models.extractor import HFExtractor
+    from hfnet_slam_torch.models.hfnet import HFNet
+
+    net = HFNet(torch.Generator().manual_seed(0))
+    kw = dict(n_features=200, threshold=1e-5, pad_to=256)
+    return HFExtractor(net, (96, 128), device=cuda, **kw), HFExtractor(net, (96, 128),
+                                                                        device="cpu", **kw)
+
+
+def _image(seed, hw=(96, 128)):
+    import numpy as np
+
+    return np.random.default_rng(seed).uniform(0, 255, hw).astype(np.float32)
+
+
+def test_extractor_on_the_card_matches_the_cpu(cuda):
+    """The card's extraction against the same code on the CPU, with the CPU
+    parity tests' tolerances: >= 99% of slots with the same mask and xy
+    (1e-3 px); descriptors, scores and the global descriptor within 1e-4."""
+    ext, ext_cpu = _small_extractors(cuda)
+    f, g = ext(_image(4)), ext_cpu(_image(4))
+    assert all(x.device.type == "cuda" for x in f)
+    f = f.to("cpu")
+    same = (f.mask == g.mask) & ((f.xy - g.xy).abs().amax(1) <= 1e-3)
+    assert float(same.float().mean()) >= 0.99
+    ok = same & g.mask
+    assert int(ok.sum()) > 100
+    assert float((f.desc - g.desc)[ok].abs().max()) <= 1e-4
+    assert float((f.score - g.score)[ok].abs().max()) <= 1e-4
+    assert float((f.global_desc - g.global_desc).abs().max()) <= 1e-4
+
+
+def test_extractor_uses_a_net_already_on_the_card(cuda):
+    """Weights drawn on the card live on cuda:0; an extractor asked for
+    "cuda" (device=None) serves them as they are, without a copy."""
+    from hfnet_slam_torch.models.extractor import HFExtractor
+    from hfnet_slam_torch.models.hfnet import HFNet
+
+    net = HFNet(torch.Generator(device=cuda).manual_seed(0))
+    assert next(net.parameters()).device.type == "cuda"
+    assert HFExtractor(net, (96, 128), n_features=200, pad_to=256).net is net
+
+
+def test_extractor_is_deterministic_on_the_card(cuda):
+    ext, _ = _small_extractors(cuda)
+    a, b = ext(_image(5)), ext(_image(5))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_pipeline_hands_features_over_between_streams(cuda):
+    """pipeline_frames extracts on a stream of its own; what the consumer
+    receives equals a direct call, frame by frame."""
+    from hfnet_slam_torch.utils.prefetch import pipeline_frames
+
+    ext, _ = _small_extractors(cuda)
+    frames = [_image(s) for s in range(6)]
+    streams = []
+
+    def extract(img):
+        streams.append(torch.cuda.current_stream())
+        return ext(img)
+
+    got = list(pipeline_frames(extract, frames, lookahead=2))
+    consumer = torch.cuda.current_stream()
+    assert streams and all(s != consumer for s in streams)
+    for img, feats in got:
+        # the consumer's stream uses the tensors, then drops them
+        s = (feats.desc @ feats.desc.T).sum()
+        assert all(torch.equal(x, y) for x, y in zip(feats, ext(img)))
+        assert torch.isfinite(s)
+
+
+def test_pipeline_waits_for_frames_the_consumer_stream_writes(cuda):
+    """Frames made on the consumer's stream behind a busy spell (a sleep
+    kernel, then an upload from pinned memory and an in-place add) and
+    dropped by the producer right after the handover: the worker must wait
+    for them and their memory must not be reused under it. The sleep
+    outlasts the host's handover, so a worker that did not wait would read
+    the frame before it is written."""
+    from hfnet_slam_torch.utils.prefetch import pipeline_frames
+
+    ext, _ = _small_extractors(cuda)
+    images = [_image(s) for s in range(6)]
+    hosts = [torch.from_numpy(img).pin_memory() for img in images]  # pinned up front
+
+    def frames():
+        for host in hosts:
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of the consumer's stream
+            x = torch.empty(host.shape, device=cuda)
+            x.copy_(host, non_blocking=True)
+            x.add_(1.0)
+            yield x
+
+    got = [feats for _, feats in pipeline_frames(ext, frames(), lookahead=1)]
+    for img, feats in zip(images, got):
+        assert all(torch.equal(x, y) for x, y in zip(feats, ext(img + 1.0)))

@@ -72,6 +72,9 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
     from hfnet_slam_torch.slam.map import MapStore
     from hfnet_slam_torch.slam.system import SLAMSystem, SystemConfig
     from hfnet_slam_torch.slam.tracking import Tracker
+    from hfnet_slam_torch.models.extractor import HFExtractor
+    from hfnet_slam_torch.models.hfnet import HFNet
+    from hfnet_slam_torch.scenes import euroc_hfnet_system
 
     cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
     store = MapStore(8, 64, 16, 8, 8)
@@ -88,7 +91,10 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
                  lambda: retrieval.detect_relocalization_candidates(store,
                                                                     np.ones(8, np.float32)),
                  lambda: cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480),
-                 lambda: cameras.kb8(190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, 512, 512)):
+                 lambda: cameras.kb8(190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, 512, 512),
+                 lambda: HFExtractor(HFNet(), (96, 128)),
+                 lambda: HFNet.from_state({}),
+                 lambda: euroc_hfnet_system()):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     with pytest.raises(RuntimeError, match="CUDA"):
