@@ -39,22 +39,44 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      (the kernel re-checked on that path's first matcher inputs);
      extraction times in float32 and bfloat16 (p50 of synced calls,
      sustained, a forward / post-processing split per level by CUDA
-     events) and the bf16 keypoints' overlap with the float32 ones.
-Phases 5 and 6 keep the inputs of their first loop-association and
-relocalization matcher calls and, after the phase, hold the kernel against
+     events) and the bf16 keypoints' overlap with the float32 ones;
+  8. async loop circuit: phase 5's circuit with async_mapping=True (the
+     mapping, loop and GBA worker threads) in bench.py's async protocol:
+     frames paced at max(50 ms, 2 x phase 5's p50 from frame 12 on), the
+     camera yielding while more than one keyframe waits for mapping (3 s at
+     most). Corrections, pre/post/keyframe ATE beside phase 5's, frame p50
+     and p99, the first-detection stall, GBA solves completed and aborted,
+     the pose-graph solve windows with the frames that finished inside
+     them, and row_top2 launches by shape and by thread; after finish(), the
+     store's structural invariants (tests/test_stress.py's) under the map
+     lock, and the kernel re-checked on the loop thread's first association
+     inputs, where no index may differ;
+  9. EuRoC runner: a 40-frame synthetic EuRoC sequence (752x480, the
+     shake of phase 7) and its settings file through
+     `hfnet_slam_torch.examples.run_euroc.main` on the card (async, HF-Net
+     with seeded random weights, 1000 features, 4 levels): one TUM line per
+     tracked frame, the timing report, row_top2 on the path (re-checked),
+     and save_atlas / load_atlas into a fresh system (every array equal; one
+     flipped byte refused), for the runner's system and phase 8's.
+Phases 5, 6, 8 and 9 keep the inputs of their first loop-association,
+relocalization or matcher calls and, after the phase, hold the kernel against
 its plain version on them (matched indices that differ, and by how much in
 float64). The kernel's main-path launch counts are zeroed just before each
-of phases 4-7's paths and read just after. The line before the last is one JSON
+of phases 4-9's paths and read just after. The line before the last is one JSON
 object describing every kernel; the last line is {"ok": true, "device":
 {...}}. Needs one CUDA card and no network. Without a card, or without the
 repository beside it, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -69,14 +91,6 @@ EXTRACT_MIN_SHARED = 0.99
 EXTRACT_TOL_XY = 1e-3
 EXTRACT_TOL_DESC = 1e-4
 SHIFT = (16, 8)  # px, (x, y): the second frame of the extraction phase
-# (frame, px): a hand-held shake in the extraction phase's tracked run. From
-# that frame on, every other frame sits 200 px further along the texture,
-# far beyond the motion model's 30 px search window, so the image jumps
-# 200 px on every frame. Random-weight descriptors are alike enough that the
-# motion model may follow one jump on false matches (after a single lasting
-# 100 px jolt, 3 of 5 runs on an H100 never launched row_top2), not eight:
-# the tracker falls back to the reference keyframe through row_top2
-SHAKE = (12, 200)
 TIMED_SHAPES = [(1024, 1024, 256), (1024, 2048, 256), (2048, 1024, 256), (1024, 4096, 256),
                 (4096, 1024, 256), (1024, 8192, 256)]
 
@@ -102,6 +116,12 @@ def phase_environment(torch):
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
+    # a card that gives wrong results from its first kernel call has shown
+    # up once; its driver and uncorrected ECC count go in the log
+    extra = subprocess.run(["nvidia-smi", "--query-gpu=driver_version,"
+                            "ecc.errors.uncorrected.volatile.total", "--format=csv,noheader"],
+                           capture_output=True, text=True).stdout.strip()
+    log(f"driver, uncorrected ECC errors: {extra or 'not reported'}")
     from hfnet_slam_torch import device as D
 
     D.full_fp32()
@@ -300,8 +320,7 @@ def reset_counts():
     """Zero the kernel's launch counts: called just before a path runs."""
     from hfnet_slam_torch.ops import bf_match
 
-    bf_match.launches = 0
-    bf_match.shape_launches.clear()
+    bf_match.reset_counts()
 
 
 def read_counts():
@@ -311,16 +330,27 @@ def read_counts():
                                for k, v in sorted(bf_match.shape_launches.items())}
 
 
+def read_thread_counts():
+    """Launches by thread name and shape, {"thread": {"NA,NB,D": n}}."""
+    from hfnet_slam_torch.ops import bf_match
+
+    out = {}
+    for (name, *shape), v in sorted(bf_match.thread_shape_launches.items()):
+        out.setdefault(name, {})[",".join(map(str, shape))] = v
+    return out
+
+
 class MatcherCalls:
     """Wraps slam.search.search_brute_force for one phase: keeps the inputs
-    of the first call `want(dB)` accepts while `active()` holds, and counts
-    the kernel launches made inside such calls."""
+    of the first call `want(dB)` accepts while `active()` holds and whose
+    result `keep` accepts, and counts the kernel launches made inside such
+    calls (from the count of all threads: exact when one thread launches)."""
 
-    def __init__(self, want, active=lambda: True):
+    def __init__(self, want, active=lambda: True, keep=lambda out: True):
         from hfnet_slam_torch.slam import search
 
         self.search, self.real = search, search.search_brute_force
-        self.want, self.active = want, active
+        self.want, self.active, self.keep = want, active, keep
         self.first, self.launches = None, 0
 
     def __enter__(self):
@@ -329,11 +359,12 @@ class MatcherCalls:
         def call(dA, mA, dB, mB, **kw):
             if not (self.active() and self.want(dB)):
                 return self.real(dA, mA, dB, mB, **kw)
-            if self.first is None:
-                self.first = ([x.clone() for x in (dA, mA, dB, mB)], kw)
+            inputs = [x.clone() for x in (dA, mA, dB, mB)] if self.first is None else None
             n0 = bf_match.launches
             out = self.real(dA, mA, dB, mB, **kw)
             self.launches += bf_match.launches - n0
+            if inputs is not None and self.keep(out):
+                self.first = (inputs, kw)
             return out
 
         self.search.search_brute_force = call
@@ -345,16 +376,20 @@ class MatcherCalls:
 
 
 class StageTimes:
-    """Host ms of each call (fenced by torch.cuda.synchronize) of named
-    functions, attached for one phase: `StageTimes(torch, {"name": (obj,
-    "attr")})`. The fences fall inside the phase's frame times, which so
-    include them. It patches module and object attributes, so a caller that
-    imported a function by name bypasses it: the phase checks that every
-    stage it must run recorded a call. Restores every attribute on exit."""
+    """Host ms and span of each call of named functions, attached for one
+    phase: `StageTimes(torch, {"name": (obj, "attr")})`. With `fence` each
+    call is fenced by torch.cuda.synchronize, and the fences fall inside the
+    phase's frame times, which so include them; without it a call adds two
+    clock reads and no device sync, so it does not slow what it watches.
+    `spans` holds each call's (start, end, thread name). It patches module
+    and object attributes, so a caller that imported a function by name
+    bypasses it: the phase checks that every stage it must run recorded a
+    call. Restores every attribute on exit."""
 
-    def __init__(self, torch, targets):
-        self.torch, self.targets = torch, targets
+    def __init__(self, torch, targets, fence=True):
+        self.torch, self.targets, self.fence = torch, targets, fence
         self.ms = {k: [] for k in targets}
+        self.spans = {k: [] for k in targets}
 
     def __enter__(self):
         self.saved = {k: getattr(o, a) for k, (o, a) in self.targets.items()}
@@ -364,12 +399,18 @@ class StageTimes:
 
     def _timed(self, k, fn):
         def run(*args, **kw):
-            self.torch.cuda.synchronize()
+            if self.fence:
+                self.torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            self.torch.cuda.synchronize()
-            self.ms[k].append((time.perf_counter() - t0) * 1e3)
-            return out
+            try:
+                out = fn(*args, **kw)
+                if self.fence:
+                    self.torch.cuda.synchronize()
+                return out
+            finally:
+                t1 = time.perf_counter()
+                self.ms[k].append((t1 - t0) * 1e3)
+                self.spans[k].append((t0, t1, threading.current_thread().name))
         return run
 
     def __exit__(self, *exc):
@@ -383,11 +424,12 @@ class StageTimes:
                 for k, v in self.ms.items()}
 
 
-def recheck(torch, label, captured):
+def recheck(torch, label, captured, exact=False):
     """The kernel against its plain version on a phase's real matcher
     inputs: row_top2 both ways and the gated mutual matcher. Prints how
-    many matched indices differ; fails only when a differing pick is more
-    than TOL_SIM worse in float64 (a bug, not a near-tie)."""
+    many matched indices differ; fails when a differing pick is more than
+    TOL_SIM worse in float64 (a bug, not a near-tie), and with `exact` when
+    any index differs."""
     from hfnet_slam_torch.ops import bf_match as B
     from hfnet_slam_torch.ops import matching as M
 
@@ -410,6 +452,9 @@ def recheck(torch, label, captured):
     out["matches"] = int((iK >= 0).sum())
     out["gated_idx_differ"] = int((iK != iP).sum())
     log(f"{label} recheck: " + json.dumps(out))
+    if exact:
+        for k in ("forward_idx_differ", "swapped_idx_differ", "gated_idx_differ"):
+            check(out[k] == 0, f"{label}: {out[k]} indices differ ({k})")
     return out
 
 
@@ -418,6 +463,19 @@ def _ate(est, gt):
     from hfnet_slam_torch.evaluation import ate
 
     return float(ate.ate_rmse(np.asarray(est), np.asarray(gt), with_scale=True))
+
+
+def _kf_ate(store, poses):
+    """Scale-corrected ATE of the map's keyframe centres against the poses of
+    their frames (timestamps 0.05 s apart): bench.py's keyframe ATE."""
+    from hfnet_slam_torch.utils import trajectory as TJ
+
+    est, gt = [], []
+    for ts, R_e, t_e in TJ.keyframe_trajectory(store):
+        R, t = poses[int(round(ts / 0.05))]
+        est.append(-R_e.T @ t_e)
+        gt.append(-R.T @ t)
+    return _ate(est, gt)
 
 
 def phase_slice(torch, smi):
@@ -527,7 +585,10 @@ def phase_loop(torch, smi):
         "detected": lc.stats["detected"], "checked": lc.stats["checked"],
         "refined": lc.stats["refined"], "loop_edges": len(store.loop_edges),
         "keyframes": int(store.kf_valid.sum()), "map_points": int(store.mp_valid.sum()),
-        "ate_pre_m": pre, "ate_post_m": post, "recovered_frames": len(rc),
+        "ate_pre_m": pre, "ate_post_m": post, "ate_kf_m": _kf_ate(store, poses),
+        "recovered_frames": len(rc),
+        "first_optimize_sim3_ms": stages.ms["optimize_sim3"][0]
+        if stages.ms["optimize_sim3"] else None,
         "frame_ms_p50": float(np.percentile(frame_ms[12:], 50)),
         "frame_ms_p99": float(np.percentile(frame_ms[12:], 99)),
         "correction_frame_ms": {str(k): v for k, v in corr_ms.items()},
@@ -550,7 +611,7 @@ def phase_loop(torch, smi):
     for shape in (f"{N},{win},{D}", f"{win},{N},{D}"):
         check(by_shape.get(shape, 0) >= 1, f"row_top2 never launched at ({shape})")
     rech = recheck(torch, "loop association", loop_calls.first)
-    return launches, by_shape, rech
+    return launches, by_shape, rech, res
 
 
 def phase_reloc(torch, smi):
@@ -709,7 +770,7 @@ def _track_run(torch, sys_, frames, pipelined):
 def phase_extraction(torch, smi):
     """HF-Net extraction on the card at EuRoC's size, behind the tracker."""
     from hfnet_slam_torch.models.extractor import HFExtractor
-    from hfnet_slam_torch.scenes import EUROC_HFNET, euroc_hfnet_system, textured_image
+    from hfnet_slam_torch.scenes import EUROC_HFNET, SHAKE, euroc_hfnet_system, textured_image
     from hfnet_slam_torch.slam import search
     from hfnet_slam_torch.slam.tracking import TrackerConfig
     from hfnet_slam_torch.tools import extract_breakdown as XB
@@ -839,6 +900,231 @@ def phase_extraction(torch, smi):
     return (n_plain + n_pipe, track_shapes, rech_track), (n_match, shapes_match, rech)
 
 
+
+def check_store_invariants(store):
+    """tests/test_stress.py's structural invariants of a map that the
+    concurrent association paths (tracker claims, fuse replacements,
+    culling, merges) must keep. Call under the map lock."""
+    obs = store.kf_obs.copy()
+    obs[~store.kf_valid] = -1
+    counts = np.zeros(store.m_max, np.int32)
+    live = obs[obs >= 0]
+    np.add.at(counts, live, 1)
+    check(np.array_equal(counts, store.mp_obs_count), "mp_obs_count out of sync with kf_obs")
+    check(bool(store.mp_valid[live].all()), "an observation of a removed point")
+    check(bool(np.isfinite(store.kf_R[store.kf_valid]).all()), "NaN/inf in keyframe rotations")
+    check(bool(np.isfinite(store.kf_t[store.kf_valid]).all()), "NaN/inf in keyframe positions")
+    check(bool(np.isfinite(store.mp_pos[store.mp_valid]).all()), "NaN/inf in the map points")
+
+
+def phase_loop_async(torch, smi, sync):
+    """Phase 5's circuit in the async pipeline, bench.py's async protocol.
+    `sync` is phase 5's result (its p50 sets the pace)."""
+    from hfnet_slam_torch.ops import bf_match
+    from hfnet_slam_torch.optim import pose_graph, sim3
+    from hfnet_slam_torch.scenes import LOOP_PRODUCTION, loop_system, ring_pose
+    from hfnet_slam_torch.utils import trajectory as TJ
+
+    size = LOOP_PRODUCTION
+    n, win = size["frames"], size["loop"]["window_mp_cap"]
+    sys_, ext = loop_system(size, async_mapping=True)  # device=None: CUDA
+    poses = [ring_pose(i, n, size["total_angle"]) for i in range(n)]
+    feats = [ext(R, t) for R, t in poses]
+    torch.cuda.synchronize()
+    lc, gba = sys_.loop_closer, sys_.gba_worker
+    pace = max(0.05, 2.0 * sync["frame_ms_p50"] / 1e3)
+    on_loop = lambda: threading.current_thread().name == "hfnet-loop"  # noqa: E731
+    # keep the first loop-thread association that passes on to Sim3 RANSAC,
+    # so the gated check covers real loop matches
+    enough = lambda out: int((out[0] >= 0).sum()) >= lc.cfg.min_pair_matches  # noqa: E731
+    spans = StageTimes(torch, {"pose_graph": (pose_graph, "optimize_pose_graph"),
+                               "optimize_sim3": (sim3, "optimize_sim3"),
+                               "match_candidate": (lc, "_match_candidate"),
+                               "correction": (lc, "_correct_loop")}, fence=False)
+    reset_counts()
+    frames, live, gt, waits = [], [], [], []
+    try:
+        with MatcherCalls(lambda dB: dB.shape[0] == win, on_loop, enough) as loop_calls, spans:
+            for i, (R, t) in enumerate(poses):
+                f0 = time.perf_counter()
+                _, Re, te = sys_.track_features(feats[i], 0.05 * i)
+                f1 = time.perf_counter()
+                frames.append((f0, f1))
+                if Re is not None:
+                    live.append(-Re.T @ te)
+                    gt.append(-R.T @ t)
+                time.sleep(max(0.0, pace - (f1 - f0)))
+                # the camera yields while keyframes queue for mapping
+                t_bp = time.perf_counter()
+                while sys_.worker.queue_size() > 1 and time.perf_counter() - t_bp < 3.0:
+                    time.sleep(0.005)
+                waits.append(time.perf_counter() - t_bp)
+            t_fin = time.perf_counter()
+            sys_.finish()  # raises a worker's exception: the phase fails
+            finish_s = time.perf_counter() - t_fin
+        launches, by_shape = read_counts()
+        by_thread = read_thread_counts()
+        store = sys_.store
+        with sys_.worker.map_lock:
+            check_store_invariants(store)
+        rec, live_r, rec_frac = TJ.recovered_resolved(sys_.trajectory, store=store)
+        rc, lr, rg = [], [], []
+        for e, el in zip(rec, live_r):
+            R, t = poses[int(round(e[0] / 0.05))]
+            rc.append(-e[1].T @ e[2])
+            lr.append(-el[1].T @ el[2])
+            rg.append(-R.T @ t)
+        pre = _ate(lr, rg) if len(rc) > 20 else _ate(live, gt)
+        post = _ate(rc, rg) if len(rc) > 20 else float("nan")
+        kf_ate = _kf_ate(store, poses)
+        stats, full, aborted = dict(lc.stats), gba.full_ba_idx, gba.aborted
+        loop_done, loop_skipped = sys_.loop_worker.processed, sys_.loop_worker.skipped
+    finally:
+        sys_.shutdown()
+    ms = np.asarray([(b - a) * 1e3 for a, b in frames])
+
+    def frames_in(t0, t1):
+        """(frames that finished inside [t0, t1], the longest frame
+        overlapping it, ms)."""
+        inside = [i for i, (a, b) in enumerate(frames) if t0 <= b <= t1]
+        over = [ms[i] for i, (a, b) in enumerate(frames) if a <= t1 and b >= t0]
+        return inside, max(over, default=0.0)
+
+    pg_windows = []
+    for a, b, th in spans.spans["pose_graph"]:
+        inside, longest = frames_in(a, b)
+        pg_windows.append({"ms": (b - a) * 1e3, "thread": th, "frames_finished": len(inside),
+                           "longest_frame_ms": longest})
+    corr = [frames_in(a, b)[1] for a, b, _ in spans.spans["correction"]]
+    # the first detection: the first association that reached OptimizeSim3
+    first = None
+    for a, b, th in spans.spans["match_candidate"]:
+        if any(a <= s0 and s1 <= b for s0, s1, _ in spans.spans["optimize_sim3"]):
+            first = {"ms": (b - a) * 1e3, "thread": th,
+                     "longest_frame_ms": frames_in(a, b)[1], "at_s": a - frames[0][0]}
+            break
+    loop_shapes = by_thread.get("hfnet-loop", {})
+    res = {
+        "frames_tracked": len(live), "frames": n, "pace_ms": pace * 1e3,
+        "corrections": stats["corrected"], "detected": stats["detected"],
+        "checked": stats["checked"], "loop_worker_processed": loop_done,
+        "loop_worker_skipped": loop_skipped, "gba_completed": full, "gba_aborted": aborted,
+        "ate_pre_m": pre, "ate_post_m": post, "ate_kf_m": kf_ate, "recovered_frac": rec_frac,
+        "sync_ate_pre_m": sync["ate_pre_m"], "sync_ate_post_m": sync["ate_post_m"],
+        "sync_ate_kf_m": sync["ate_kf_m"],
+        "frame_ms_p50": float(np.percentile(ms[12:], 50)),
+        "frame_ms_p99": float(np.percentile(ms[12:], 99)),
+        "sync_frame_ms_p50": sync["frame_ms_p50"], "sync_frame_ms_p99": sync["frame_ms_p99"],
+        "camera_wait_s": float(np.sum(waits)), "finish_s": finish_s,
+        "first_detection": first, "sync_first_optimize_sim3_ms": sync["first_optimize_sim3_ms"],
+        "pose_graph_windows": pg_windows,
+        "longest_frame_during_correction_ms": max(corr, default=0.0),
+        "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape,
+        "row_top2_launches_by_thread": by_thread, "card": smi,
+    }
+    log("loop async: " + json.dumps(res))
+    check(stats["corrected"] >= 1, f"no async loop correction ({stats})")
+    check(full >= 1, f"no global BA solve completed (aborted {aborted})")
+    check(np.isfinite(post), f"post-correction ATE {post} is not finite")
+    check(post <= pre, f"post-correction ATE {post} m > pre-correction {pre} m")
+    N, D = sys_.cfg.n_slots, sys_.cfg.desc_dim
+    for shape in (f"{N},{win},{D}", f"{win},{N},{D}"):
+        check(loop_shapes.get(shape, 0) >= 1,
+              f"row_top2 never launched at ({shape}) from the hfnet-loop thread ({by_thread})")
+    rech = recheck(torch, "async loop association", loop_calls.first, exact=True)
+    check(rech["matches"] >= lc.cfg.min_pair_matches,
+          f"async loop association re-checked on {rech['matches']} matches")
+    return launches, by_shape, by_thread, rech, sys_
+
+
+def atlas_round_trip(sys_, path):
+    """save_atlas, then load_atlas into a fresh system of the same
+    capacities: every array of every map must be equal, and one flipped byte
+    in a map file must make load_atlas refuse the snapshot."""
+    from hfnet_slam_torch.slam.map import _ARRAY_FIELDS
+    from hfnet_slam_torch.slam.system import SLAMSystem, SystemConfig
+
+    sys_.save_atlas(path)
+    c = sys_.cfg
+    fresh = SLAMSystem(sys_.cam, None, SystemConfig(
+        k_max=c.k_max, m_max=c.m_max, n_slots=c.n_slots, desc_dim=c.desc_dim,
+        gdesc_dim=c.gdesc_dim, loop_closing=False))
+    fresh.load_atlas(path)
+    check(fresh.atlas.n_maps() == sys_.atlas.n_maps()
+          and fresh.atlas.active_idx == sys_.atlas.active_idx, "atlas maps differ")
+    for a, b in zip(sys_.atlas.maps, fresh.atlas.maps):
+        for f in _ARRAY_FIELDS:
+            check(np.array_equal(getattr(a, f), getattr(b, f)), f"atlas field {f} differs")
+        check(a.loop_edges == b.loop_edges, "atlas loop edges differ")
+    f0 = os.path.join(path, "map_0.npz")
+    raw = bytearray(open(f0, "rb").read())
+    raw[len(raw) // 2] ^= 0xFF
+    open(f0, "wb").write(bytes(raw))
+    try:
+        fresh.load_atlas(path)
+        refused = False
+    except IOError:
+        refused = True
+    check(refused, "load_atlas took a snapshot with a flipped byte")
+    return {"maps": sys_.atlas.n_maps(),
+            "keyframes": [int(m.kf_valid.sum()) for m in sys_.atlas.maps],
+            "map_points": [int(m.mp_valid.sum()) for m in sys_.atlas.maps],
+            "loop_edges": [len(m.loop_edges) for m in sys_.atlas.maps],
+            "arrays": "equal", "flipped_byte": "refused"}
+
+
+def phase_euroc_runner(torch, smi, async_sys):
+    """The EuRoC runner on a synthetic sequence, then the atlas round trip of
+    its system and of phase 8's (`async_sys`, the larger map)."""
+    from hfnet_slam_torch.examples import run_euroc
+    from hfnet_slam_torch.scenes import write_euroc_sequence
+    from hfnet_slam_torch.utils.timing import timings
+
+    n = 40
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, cfg, stamps = write_euroc_sequence(tmp, n)
+        out = os.path.join(tmp, "traj.txt")
+        timings.reset()
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with MatcherCalls(lambda dB: True) as calls, contextlib.redirect_stdout(printed):
+            sys_ = run_euroc.main([seq, "--config", cfg, "--out", out])
+        secs = time.perf_counter() - t0
+        launches, by_shape = read_counts()
+        by_thread = read_thread_counts()
+        for line in printed.getvalue().splitlines():
+            log(f"  run_euroc: {line}")
+        report, st = timings.report(), timings.stats()
+        lines = open(out).read().splitlines()
+        rows = [[float(x) for x in ln.split()] for ln in lines]
+        check(len(lines) == len(sys_.trajectory) >= 1,
+              f"{len(lines)} TUM lines for {len(sys_.trajectory)} tracked frames")
+        check(all(len(r) == 8 and np.isfinite(r).all() for r in rows), "a malformed TUM line")
+        want_ts = {round(float(x), 6) for x in stamps}
+        check(all(round(r[0], 6) in want_ts for r in rows), "a TUM timestamp not in the sequence")
+        check("frame_total" in report and st["frame_total"][0] == n,
+              "the timing report lacks frame_total")
+        check(launches >= 2, f"row_top2 launched {launches} times on the runner's path, want >= 2")
+        rech = recheck(torch, "euroc runner", calls.first, exact=True)
+
+        atlas = {"euroc_runner": atlas_round_trip(sys_, os.path.join(tmp, "a1")),
+                 "loop_async": atlas_round_trip(async_sys, os.path.join(tmp, "a2"))}
+    store = sys_.store
+    res = {
+        "frames": n, "tracked_lines": len(lines), "maps": sys_.atlas.n_maps(),
+        "keyframes": int(store.kf_valid.sum()), "map_points": int(store.mp_valid.sum()),
+        "seconds": secs, "frame_total_ms": {"n": st["frame_total"][0],
+                                            "p50": st["frame_total"][3],
+                                            "p95": st["frame_total"][4]},
+        "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape,
+        "row_top2_launches_by_thread": by_thread, "atlas_round_trip": atlas, "card": smi,
+    }
+    log("euroc runner: " + json.dumps(res))
+    return launches, by_shape, rech
+
+
 def main():
     import torch
 
@@ -854,14 +1140,20 @@ def main():
     t0 = time.perf_counter()
     n_browse, shapes_browse = phase_slice(torch, smi)
     t1 = time.perf_counter()
-    n_loop, shapes_loop, rech_loop = phase_loop(torch, smi)
+    n_loop, shapes_loop, rech_loop, loop_res = phase_loop(torch, smi)
     t2 = time.perf_counter()
     n_reloc, shapes_reloc, rech_reloc, n_reloc_calls = phase_reloc(torch, smi)
     t3 = time.perf_counter()
     (n_track, shapes_track, rech_track), (n_call, shapes_call, rech_call) = \
         phase_extraction(torch, smi)
+    t4 = time.perf_counter()
+    n_async, shapes_async, threads_async, rech_async, async_sys = \
+        phase_loop_async(torch, smi, loop_res)
+    t5 = time.perf_counter()
+    n_euroc, shapes_euroc, rech_euroc = phase_euroc_runner(torch, smi, async_sys)
     log(f"phase seconds: browse {t1 - t0:.1f}, loop {t2 - t1:.1f}, "
-        f"relocalization {t3 - t2:.1f}, extraction {time.perf_counter() - t3:.1f}")
+        f"relocalization {t3 - t2:.1f}, extraction {t4 - t3:.1f}, loop async {t5 - t4:.1f}, "
+        f"euroc runner {time.perf_counter() - t5:.1f}")
 
     # the browse shape leads; the loop-association shapes follow under
     # "shapes". Paths are main-path runs; "relocalization_calls" is the part
@@ -872,18 +1164,22 @@ def main():
         "name": "row_top2", "route": "cuda",
         "source": "hfnet_slam_torch/csrc/row_top2.cu",
         "replaces": "hfnet_slam_tpu/ops/pallas_match.py:52",
-        "launches": n_browse + n_loop + n_reloc + n_track,
+        "launches": n_browse + n_loop + n_reloc + n_track + n_async + n_euroc,
         "launches_by_path": {"browse": n_browse, "loop": n_loop, "relocalization": n_reloc,
                              "relocalization_calls": n_reloc_calls,
-                             "extraction_track": n_track, "extraction_matcher_call": n_call},
+                             "extraction_track": n_track, "extraction_matcher_call": n_call,
+                             "loop_async": n_async, "euroc_runner": n_euroc},
         "launches_by_shape": {"browse": shapes_browse, "loop": shapes_loop,
                               "relocalization": shapes_reloc, "extraction_track": shapes_track,
-                              "extraction_matcher_call": shapes_call},
+                              "extraction_matcher_call": shapes_call,
+                              "loop_async": shapes_async, "euroc_runner": shapes_euroc},
+        "loop_async_launches_by_thread": threads_async,
         "max_abs_err": max_err,
         **timings[0],
         "bound_peak": "3xTF32 on the tensor cores, 495 TFLOP/s",
         "shapes": timings[1:],
-        "recheck_on_path_inputs": [rech_loop, rech_reloc, rech_track, rech_call],
+        "recheck_on_path_inputs": [rech_loop, rech_reloc, rech_track, rech_call, rech_async,
+                                   rech_euroc],
     }
     log(smi)
     log(json.dumps({"kernels": [kern]}))

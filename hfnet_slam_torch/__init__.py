@@ -14,12 +14,15 @@ find, and imports neither `jax` nor any module of the reference:
   optim/          -- pose-only LM, Schur-complement bundle adjustment, PnP
                      and Sim3 RANSAC, the Sim3 pose graph
   slam/           -- map store, device mirrors, tracking and relocalization,
-                     local mapping, retrieval, loop closing, merging, facade
+                     local mapping, retrieval, loop closing, merging, the
+                     async mapping/loop/GBA workers, atlas, facade
   native/         -- C++ host runtime (covisibility bookkeeping) via ctypes
   csrc/           -- hand-written CUDA kernels (built with nvcc at first use)
   evaluation/     -- ATE (Horn alignment)
-  utils/          -- trajectory recovery through reference keyframes,
-                     pipelined (prefetched) extraction
+  utils/          -- trajectory savers and recovery, settings files, dataset
+                     readers (with a PNG codec), timing, pipelined
+                     (prefetched) extraction
+  examples/       -- the EuRoC runner
   convert.py      -- HF-Net weights, map and tracker state carried over from
                      the reference
 

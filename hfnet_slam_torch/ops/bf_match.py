@@ -31,9 +31,13 @@ _LIB_PATH = os.path.join(D.BUILD_DIR, "librow_top2.so")
 _NO_ENCODER = -1000000  # row_top2_launch: cuTensorMapEncodeTiled not found
 
 # kernel launches made by row_top2 on CUDA tensors (one per wrapper call),
-# in all and by (NA, NB, D); reset by callers that count
+# in all, by (NA, NB, D) and by (thread name, NA, NB, D); reset by callers
+# that count (`reset_counts`). The async pipeline launches from its worker
+# threads, so every update holds _count_lock
 launches = 0
 shape_launches = collections.Counter()
+thread_shape_launches = collections.Counter()
+_count_lock = threading.Lock()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -103,17 +107,36 @@ def _plan(lib, dev, stream, NA, NB):
     (best, second, idx) states and merge tickets, cached per device, stream
     and shape. The kernel leaves the tickets at zero, as it finds them."""
     key = (dev.index, stream, NA, NB)
-    plan = _plans.get(key)
     capturing = torch.cuda.is_current_stream_capturing()
-    if plan is None or (capturing and plan[1] is not None):
-        nsplit = plan[0] if plan else lib.row_top2_nsplit(
-            NA, NB, torch.cuda.get_device_properties(dev).multi_processor_count)
-        words = lib.row_top2_scratch_words(NA, nsplit)
-        scratch = torch.zeros(words, dtype=torch.int32, device=dev) if words else None
-        plan = (nsplit, scratch)
-        if not capturing:  # a graph owns the scratch it captured: replays may
-            _plans[key] = plan  # run on any stream
+    with _lib_lock:  # threads on one stream share its plan
+        plan = _plans.get(key)
+        if plan is None or (capturing and plan[1] is not None):
+            nsplit = plan[0] if plan else lib.row_top2_nsplit(
+                NA, NB, torch.cuda.get_device_properties(dev).multi_processor_count)
+            words = lib.row_top2_scratch_words(NA, nsplit)
+            scratch = torch.zeros(words, dtype=torch.int32, device=dev) if words else None
+            plan = (nsplit, scratch)
+            if not capturing:  # a graph owns the scratch it captured: replays may
+                _plans[key] = plan  # run on any stream
     return plan
+
+
+def count_launch(shape):
+    """Add one launch at `shape` = (NA, NB, D) from the calling thread."""
+    global launches
+    with _count_lock:
+        launches += 1
+        shape_launches[shape] += 1
+        thread_shape_launches[(threading.current_thread().name,) + shape] += 1
+
+
+def reset_counts():
+    """Zero every launch count."""
+    global launches
+    with _count_lock:
+        launches = 0
+        shape_launches.clear()
+        thread_shape_launches.clear()
 
 
 def _tma_ready(x, ld):
@@ -154,7 +177,6 @@ def _check(dA, dB, maskB):
 def row_top2(dA, dB, maskB):
     """Fused row-wise top-2 similarity: returns (best (NA,) f32, second (NA,)
     f32, idx (NA,) int32). CUDA tensors run the hand-written kernel."""
-    global launches
     _check(dA, dB, maskB)
     if dA.device.type == "cpu":
         return row_top2_reference(dA, dB, maskB)
@@ -162,12 +184,16 @@ def row_top2(dA, dB, maskB):
         raise ValueError(f"row_top2: unsupported device {dA.device}")
     if not (dA.is_contiguous() and dB.is_contiguous() and maskB.is_contiguous()):
         raise ValueError("row_top2: inputs must be contiguous")
-    lib = _lib or _load()
+    return _launch(_lib or _load(), dA, dB, maskB,
+                   torch.cuda.current_stream(dA.device).cuda_stream)
+
+
+def _launch(lib, dA, dB, maskB, stream):
+    """One launch of the kernel library `lib` on `stream`, counted."""
     (NA, Dd), NB = dA.shape, dB.shape[0]
     ld = (Dd + 3) // 4 * 4  # TMA: rows a multiple of 16 bytes
     dA, dB = _tma_ready(dA, ld), _tma_ready(dB, ld)
     dev = dA.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
     nsplit, scratch = _plan(lib, dev, stream, NA, NB)
     best = torch.empty(NA, dtype=torch.float32, device=dev)
     second = torch.empty(NA, dtype=torch.float32, device=dev)
@@ -183,8 +209,7 @@ def row_top2(dA, dB, maskB):
         raise RuntimeError("row_top2: libcuda offers no cuTensorMapEncodeTiled (CUDA >= 12)")
     if err < 0:
         raise RuntimeError(f"row_top2: cuTensorMapEncodeTiled failed: CUresult {-err}")
-    launches += 1
-    shape_launches[(NA, NB, Dd)] += 1
+    count_launch((NA, NB, Dd))
     return best, second, idx
 
 

@@ -24,9 +24,20 @@ driven with: Gaussian blobs from a seeded generator.
 
 Each `*_spec` is the one definition of a system as plain data; the port's
 builders and the parity tests' JAX builder both read it, so the two packages
-are driven with identical configurations.
+are driven with identical configurations. `browse_system` and `loop_system`
+take `async_mapping=True` for the async mapping/loop/GBA pipeline.
+
+A synthetic EuRoC sequence (`write_euroc_sequence`): `textured_image` frames
+in EuRoC's `mav0/cam0` layout (8-bit PNGs, data.csv with nanosecond
+timestamps 50 ms apart) and a settings file in the reference's format, for
+the EuRoC runner (examples/run_euroc.py) where no real sequence is at hand.
+The texture moves 4 px a frame and, from `shake[0]` on, every other frame
+sits `shake[1]` px further along it (the hand-held shake that sends tracking
+to the reference keyframe through row_top2).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -166,6 +177,17 @@ def loop_spec(size):
         mapper=dict(s["mapper"]), loop=dict(s["loop"]))
 
 
+# (frame, px): the hand-held shake of the EuRoC sequences (chip_smoke.py's
+# extraction phase and write_euroc_sequence). From that frame on, every
+# other frame sits 200 px further along the texture, far beyond the motion
+# model's 30 px search window, so the image jumps 200 px on every frame.
+# Random-weight descriptors are alike enough that the motion model may follow
+# one jump on false matches (after a single lasting 100 px jolt, 3 of 5 runs
+# on an H100 never launched row_top2), not eight: the tracker falls back to
+# the reference keyframe through row_top2
+SHAKE = (12, 200)
+
+
 def _system(sp, world, device):
     cam = cameras.pinhole(**sp["cam"], device=device)
     ext = FakeExtractor(world, cam, **sp["ext"], device=device)
@@ -175,16 +197,20 @@ def _system(sp, world, device):
     return SLAMSystem(cam, ext, cfg, device=device), ext
 
 
-def browse_system(size, device=None, spec=browse_spec):
+def browse_system(size, device=None, spec=browse_spec, async_mapping=False):
     """(SLAMSystem, FakeExtractor) of `spec(size)` (browse_spec or
-    reloc_spec) on `device` (None means CUDA)."""
+    reloc_spec) on `device` (None means CUDA), in the async pipeline when
+    `async_mapping`."""
     sp = spec(size)
+    sp["system"]["async_mapping"] = async_mapping
     return _system(sp, SyntheticWorld.cloud(**sp["world"]), device)
 
 
-def loop_system(size, device=None):
-    """(SLAMSystem, FakeExtractor) of `loop_spec(size)` on `device`."""
+def loop_system(size, device=None, async_mapping=False):
+    """(SLAMSystem, FakeExtractor) of `loop_spec(size)` on `device`, in the
+    async pipeline when `async_mapping`."""
     sp = loop_spec(size)
+    sp["system"]["async_mapping"] = async_mapping
     return _system(sp, SyntheticWorld(*ring_world(**sp["world"])), device)
 
 
@@ -225,3 +251,56 @@ def euroc_hfnet_system(device=None, dtype=torch.float32, seed=0):
                       dtype=dtype, device=dev)
     cfg = SystemConfig(n_slots=EUROC_HFNET["pad_to"], desc_dim=256, gdesc_dim=4096)
     return SLAMSystem(cam, ext, cfg, device=dev)
+
+
+EUROC_T0_NS = 1403636579763555584  # MH_01_easy's first cam0 timestamp
+EUROC_SETTINGS = """%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: {fx}
+Camera1.fy: {fy}
+Camera1.cx: {cx}
+Camera1.cy: {cy}
+Camera.width: {width}
+Camera.height: {height}
+Camera.fps: 20
+Camera.RGB: 1
+Extractor.type: "HFNetTPU"
+Extractor.nFeatures: {n_features}
+Extractor.nLevels: {n_levels}
+Extractor.scaleFactor: {scale_factor}
+Extractor.threshold: {threshold}
+loopClosing: 1
+"""
+
+
+EUROC_STEP_PX = 4  # the synthetic sequence's pan between frames
+EUROC_TEXTURE_SEED = 0
+
+
+def write_euroc_sequence(out_dir, n_frames, shake=SHAKE):
+    """Write `n_frames` textured frames of cam0's size in EuRoC's layout
+    under out_dir/mav0 and a settings file out_dir/settings.yaml. Returns
+    (mav0 path, settings path, frame timestamps in seconds)."""
+    from .utils.datasets import write_png
+
+    H, W = EUROC_CAM0["height"], EUROC_CAM0["width"]
+    at, px = shake
+    offs = [EUROC_STEP_PX * i + (px if i >= at and (i - at) % 2 == 0 else 0)
+            for i in range(n_frames)]
+    canvas = textured_image(np.random.default_rng(EUROC_TEXTURE_SEED), H, W + max(offs))
+    data = os.path.join(out_dir, "mav0", "cam0", "data")
+    os.makedirs(data, exist_ok=True)
+    lines, stamps = ["#timestamp [ns],filename"], []
+    for i, o in enumerate(offs):
+        ns = EUROC_T0_NS + i * 50_000_000
+        write_png(os.path.join(data, f"{ns}.png"),
+                  np.round(canvas[:, o:o + W]).astype(np.uint8))
+        lines.append(f"{ns},{ns}.png")
+        stamps.append(ns * 1e-9)
+    with open(os.path.join(out_dir, "mav0", "cam0", "data.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    settings = os.path.join(out_dir, "settings.yaml")
+    with open(settings, "w") as f:
+        f.write(EUROC_SETTINGS.format(**EUROC_CAM0, **EUROC_HFNET))
+    return os.path.join(out_dir, "mav0"), settings, np.asarray(stamps)

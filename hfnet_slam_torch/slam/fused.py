@@ -17,7 +17,12 @@ building block takes the batch dimension explicitly.
 
 Mirror updates are functional (`index_copy`, never in place), like the
 reference's non-donated scatters: a handle tuple taken by snapshot() stays
-internally consistent while a later sync() builds new tensors. The
+internally consistent while a later sync() builds new tensors. The async
+pipeline depends on it: a worker syncs and snapshots under the map lock and
+runs its kernel on the snapshot without it, while the tracker syncs again.
+So no write here is in place, no upload is non_blocking, and no pinned
+staging buffer is filled from the store's arrays (it would be rewritten
+while a copy from it is in flight). The
 out-of-range pad rows the reference scatters with mode="drop" do not exist
 here: eager scatters take exactly the dirty ids.
 """

@@ -1,7 +1,8 @@
 """Loop closing: place recognition, Sim3 estimation, loop correction, merges.
 
-Counterpart of hfnet_slam_tpu/slam/loop_closing.py in its synchronous form
-(LoopCloser.process_keyframe runs inline on keyframe insertion):
+Counterpart of hfnet_slam_tpu/slam/loop_closing.py. LoopCloser.process_keyframe
+runs inline on keyframe insertion in the synchronous pipeline, on the loop
+worker's thread in the async one (slam/pipeline.py):
 
   detect (NewDetectCommonRegions): skip small maps; retrieval candidates
     (slam/retrieval.py); per candidate, the current keyframe's descriptors
@@ -22,9 +23,15 @@ correction, pending endpoints pinned by keyframe uid, and the refusal of
 self-loops and covisible loops. The reference's NumPy generator for the
 RANSAC keys becomes a seeded torch.Generator drawing the Sim3 picks.
 
-The async workers (mapping pause, detached GBA) are ROADMAP.md Queue 1
-item 14b; the inertial gravity gate and 4-DoF/inertial corrections are
-item 15 (reached only on an IMU-initialized map, which raises).
+Locking (the reference never pauses tracking for a correction): detection
+runs off the map lock on copies of what it reads, and every decision is
+checked again under the lock before anything is written. A correction pauses
+the mapping worker, holds the lock for the window propagation and the fuse's
+host work (the fuse kernel runs without it), solves the essential graph off
+the lock on a snapshot whose write-back is discarded when the map moved, and
+hands global BA to the detached GBA worker. The inertial gravity gate and
+4-DoF/inertial corrections are ROADMAP.md Queue 1 item 15 (reached only on an
+IMU-initialized map, which raises).
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ..optim import pose_graph as pg
 from ..optim import sim3 as sim3_mod
 from . import fused, retrieval, search
 from .map import MapStore
+from .pipeline import NULL_LOCK
 
 
 @dataclasses.dataclass
@@ -77,6 +85,11 @@ class LoopCloser:
         self.mapper = mapper
         self.system = None  # set by SLAMSystem; enables cross-map merges
         self._gen = torch.Generator().manual_seed(rng_seed)
+        self.lock = NULL_LOCK  # the map lock (the shared RLock in async mode)
+        # async wiring, set by SLAMSystem: the detached GBA worker (None runs
+        # global BA inline) and the mapping worker a correction pauses
+        self.gba_worker = None
+        self.mapping_worker = None
         self.consistent_hits = 0
         self.last_candidate = -1
         self._pending = None  # dict(cand, R_cw, t_cw, s_cw, last_kf, loop_mps, miss, uids)
@@ -89,7 +102,9 @@ class LoopCloser:
         self.loop_refractory_kfs = 10
 
     def _t(self, x, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        """Host array -> a copy on the loop closer's device (never a store
+        view: detection reads the store off the map lock)."""
+        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
     def process_keyframe(self, k: int) -> bool:
@@ -297,9 +312,21 @@ class LoopCloser:
                 hit = self._match_candidate(k, cand, store_b=m)
                 if hit is None:
                     continue
-                k_new = sys_.execute_merge(idx, k, cand, *hit)
+                # the weld mutates both maps and the tracker: under the map
+                # lock, with mapping paused (MergeLocal's RequestStop); the
+                # welding passes run off the surgery lock
+                mw = self.mapping_worker
+                if mw is not None:
+                    mw.request_pause()
+                try:
+                    with self.lock:
+                        k_new = sys_.execute_merge(idx, k, cand, *hit)
+                    if k_new is not False:
+                        sys_.weld_after_merge(int(k_new), hit[-1])
+                finally:
+                    if mw is not None:
+                        mw.resume()
                 if k_new is not False:
-                    sys_.weld_after_merge(int(k_new), hit[-1])
                     self.stats["merged"] += 1
                     return True
         return False
@@ -381,37 +408,64 @@ class LoopCloser:
     # ------------------------------------------------------------------
     def _correct_loop(self, k: int, cand: int, R_cm, t_cm, s_cm, loop_mps):
         """CorrectLoop: Sim3-propagate the current window, fuse duplicates,
-        optimize the essential graph, global BA."""
+        optimize the essential graph, global BA. Mapping is paused for the
+        correction (its row-level writes bump no big_change_idx, so the
+        staleness guard alone cannot see them); tracking never is."""
         store = self.store
         cfg = self.cfg
-        if not (store.kf_valid[k] and store.kf_valid[cand]):
-            return
-        # a self- or covisible "loop" has no drift to absorb; correcting
-        # along it would warp the map by the Sim3 scale
-        if int(cand) == int(k) or store.covis[k, cand] > 0:
-            return
-        kf_ids = store.valid_kf_ids()
-        pre_R = store.kf_R.copy()
-        pre_t = store.kf_t.copy()
+        mw = self.mapping_worker
+        if mw is not None:
+            mw.request_pause()
+        try:
+            with self.lock:
+                # detection ran while mapping worked: an endpoint may be gone
+                if not (store.kf_valid[k] and store.kf_valid[cand]):
+                    return
+                # a self- or covisible "loop" has no drift to absorb;
+                # correcting along it would warp the map by the Sim3 scale
+                if int(cand) == int(k) or store.covis[k, cand] > 0:
+                    return
+                kf_ids = store.valid_kf_ids()
+                pre_R = store.kf_R.copy()
+                pre_t = store.kf_t.copy()
+                _, window = self.propagate_window_correction(k, cand, R_cm, t_cm, s_cm)
+                store.loop_edges.append((int(cand), int(k)))
+                # a whole-map move: concurrent solves discard, the mirror
+                # re-uploads, the tracker restarts its motion model
+                store.bump_change()
+                self._fuse_loop_points(window, loop_mps)
+                big0 = store.big_change_idx
+                built = self._build_essential_graph(kf_ids, pre_R, pre_t, k, cand,
+                                                    (R_cm, t_cm, s_cm))
+            if built is not None:
+                prob, meta = built
+                # the solve runs off the lock on the snapshot (tracking goes
+                # on; mapping is paused, so only born keyframes can appear)
+                out, _ = pg.optimize_pose_graph(prob, n_iters=cfg.pg_iters,
+                                                fix_scale=cfg.fix_scale, mode="sim3")
+                out = (out.R.cpu().numpy(), out.t.cpu().numpy(), out.s.cpu().numpy())
+                with self.lock:
+                    if store.big_change_idx == big0:
+                        self._apply_pose_graph(meta, out)
+                        store.bump_change()
+                    else:
+                        from ..utils.log import warn
 
-        _, window = self.propagate_window_correction(k, cand, R_cm, t_cm, s_cm)
-        store.loop_edges.append((int(cand), int(k)))
-        store.bump_change()
-        self._fuse_loop_points(window, loop_mps)
+                        warn("loop: essential-graph solve discarded (the map moved during "
+                             "the detached solve)")
+        finally:
+            if mw is not None:
+                mw.resume()
 
-        built = self._build_essential_graph(kf_ids, pre_R, pre_t, k, cand, (R_cm, t_cm, s_cm))
-        if built is not None:
-            prob, meta = built
-            out, _ = pg.optimize_pose_graph(prob, n_iters=cfg.pg_iters, fix_scale=cfg.fix_scale,
-                                            mode="sim3")
-            self._apply_pose_graph(meta, (out.R.cpu().numpy(), out.t.cpu().numpy(),
-                                          out.s.cpu().numpy()))
-            store.bump_change()
-
+        # global BA: detached on the GBA worker in async mode (a newer loop
+        # aborts a solve in flight), inline otherwise
         if cfg.run_gba and self.mapper is not None:
-            self.mapper.run_global_ba(fixed_ids=[int(cand)], rounds=cfg.gba_rounds,
-                                      kf_cap=cfg.gba_kf_cap, mp_cap=cfg.gba_mp_cap,
-                                      edge_cap=cfg.gba_edge_cap)
+            kwargs = dict(fixed_ids=[int(cand)], rounds=cfg.gba_rounds, kf_cap=cfg.gba_kf_cap,
+                          mp_cap=cfg.gba_mp_cap, edge_cap=cfg.gba_edge_cap)
+            if self.gba_worker is not None:
+                self.gba_worker.request("visual", **kwargs)
+            else:
+                self.mapper.run_global_ba(**kwargs)
         self.stats["corrected"] += 1
         self.last_loop = (int(k), int(cand))
         self._last_loop_seq = self._kf_seq
@@ -473,7 +527,9 @@ class LoopCloser:
     def _fuse_loop_points(self, window, loop_mps):
         """Project the loop points into every corrected window keyframe in
         one batched call (fused.fuse_targets_banked) and replace the window
-        keyframes' conflicting observations by the (older) loop points."""
+        keyframes' conflicting observations by the (older) loop points.
+        Called under the map lock; the kernel runs with it released, on the
+        snapshots and copies taken under it."""
         store = self.store
         loop_mps = loop_mps[store.mp_valid[loop_mps]]
         if len(loop_mps) == 0:
@@ -499,13 +555,22 @@ class LoopCloser:
         bank = fused.get_kf_bank(store, self.cam, self.device)
         bank.sync()
         b_xy, b_desc, b_oct, b_mask, _, _ = bank.snapshot()
-        idx = fused.fuse_targets_banked(
-            self.cam.kind, self.cam.params, float(self.cam.width), float(self.cam.height),
-            self._t(tgt_ids, torch.int64), self._t(cand, torch.int64), self._t(R_t),
-            self._t(t_t), b_xy, b_desc, b_oct, b_mask, pos_s, desc_s, valid_s,
-            radius=float(self.cfg.proj_radius), max_dist=0.75).cpu().numpy()
+        args = (self._t(tgt_ids, torch.int64), self._t(cand, torch.int64), self._t(R_t),
+                self._t(t_t))
+        self.lock.release()
+        try:
+            idx = fused.fuse_targets_banked(
+                self.cam.kind, self.cam.params, float(self.cam.width), float(self.cam.height),
+                *args, b_xy, b_desc, b_oct, b_mask, pos_s, desc_s, valid_s,
+                radius=float(self.cfg.proj_radius), max_dist=0.75).cpu().numpy()
+        finally:
+            self.lock.acquire()
 
         for pi, i in enumerate(window):
+            # a merge fuses with mapping running: a window keyframe may have
+            # been culled while the kernel ran
+            if not store.kf_valid[i]:
+                continue
             slots = np.nonzero(idx[pi] >= 0)[0]
             if len(slots) == 0:
                 continue
@@ -595,14 +660,18 @@ class LoopCloser:
         return prob, {"kf_ids": kf_ids, "V_R": V_R[:K].copy(), "V_t": V_t[:K].copy()}
 
     def _apply_pose_graph(self, meta, out):
-        """Write the pose-graph solution back: every map point through its
-        reference keyframe, p' = S_new^-1(S_old(p)), and the keyframe poses
-        as [R, t/s]."""
+        """Write the pose-graph solution back (under the map lock, after the
+        staleness check): every map point through its reference keyframe,
+        p' = S_new^-1(S_old(p)), the keyframe poses as [R, t/s], and the
+        keyframes born during the detached solve after their anchors."""
         store = self.store
         kf_ids = meta["kf_ids"]
         K = len(kf_ids)
         V_R, V_t = meta["V_R"], meta["V_t"]
         R_new, t_new, s_new = out[0][:K], out[1][:K], out[2][:K]
+        # every keyframe's pose before this write-back, for the born ones
+        pre_all_R = store.kf_R.copy()
+        pre_all_t = store.kf_t.copy()
 
         mp_ids = np.nonzero(store.mp_valid)[0]
         if len(mp_ids):
@@ -627,3 +696,10 @@ class LoopCloser:
         alive = store.kf_valid[kf_ids]
         store.kf_R[kf_ids[alive]] = R_new[alive]
         store.kf_t[kf_ids[alive]] = (t_new / s_new[:, None])[alive]
+
+        if self.mapper is not None:
+            born = np.nonzero(store.kf_valid)[0]
+            born = born[~np.isin(born, kf_ids)]
+            if len(born):
+                self.mapper.propagate_ba_correction(kf_ids[alive], mp_ids, pre_all_R,
+                                                    pre_all_t, scope=born)

@@ -38,8 +38,8 @@ def score_all(store: MapStore, gdesc, device=None) -> np.ndarray:
     every valid keyframe, computed on `device` (None means CUDA)."""
     device = resolve(device)
 
-    def t(x):
-        return torch.as_tensor(np.asarray(x), device=device)
+    def t(x):  # a copy: retrieval reads the store off the map lock
+        return torch.tensor(np.asarray(x), device=device)
 
     sc = M.global_scores(t(np.asarray(gdesc, np.float32)), t(store.kf_gdesc),
                          t(store.kf_valid))

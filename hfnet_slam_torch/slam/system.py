@@ -1,12 +1,15 @@
 """SLAM system facade: the public API of the port.
 
-Counterpart of hfnet_slam_tpu/slam/system.py in its synchronous monocular
-form: construction wires the extractor, tracker, local mapper and (with the
-reference's default loop_closing=True) the loop closer around the atlas's
-active MapStore; `track_monocular(image, t)` / `track_features(feats, t)` are
-the per-frame entries; a loop-closer hit in another map welds the maps
-(`execute_merge`, `weld_after_merge`); `save_map` / `load_map` use the
-reference's .npz format.
+Counterpart of hfnet_slam_tpu/slam/system.py for monocular SLAM: construction
+wires the extractor, tracker, local mapper and (with the reference's default
+loop_closing=True) the loop closer around the atlas's active MapStore;
+`track_monocular(image, t)` / `track_features(feats, t)` are the per-frame
+entries; a loop-closer hit in another map welds the maps (`execute_merge`,
+`weld_after_merge`). With `SystemConfig(async_mapping=True)` mapping, loop
+closing and global BA run on worker threads (slam/pipeline.py) around one
+map lock; `finish()` drains them and `shutdown()` stops them. The trajectory
+savers write TUM, EuRoC or KITTI lines; `save_map` / `load_map` and
+`save_atlas` / `load_atlas` use the reference's formats.
 
 `SLAMSystem(cam, extractor, cfg, device=None)` runs on CUDA (None) unless the
 caller passes device="cpu"; a CUDA request without a card raises. Features
@@ -53,10 +56,6 @@ class SystemConfig:
 
 
 def _check_slice(cfg: SystemConfig, imu_calib):
-    if cfg.async_mapping:
-        raise NotImplementedError(
-            "the async mapping/loop pipeline is ROADMAP.md Queue 1 item 14b; pass "
-            "SystemConfig(async_mapping=False)")
     if imu_calib is not None:
         raise NotImplementedError("visual-inertial SLAM is ROADMAP.md Queue 1 item 15")
     if cfg.baseline > 0 or cfg.cam_right is not None or cfg.T_lr is not None:
@@ -90,6 +89,24 @@ class SLAMSystem:
         if self.loop_closer is not None:
             self.loop_closer.system = self  # enables cross-map merges
         self._traj_mark = 0
+        self.worker = None
+        self.loop_worker = None
+        self.gba_worker = None
+        if c.async_mapping:
+            from .pipeline import GBAWorker, LoopWorker, MappingWorker
+
+            self.worker = MappingWorker(self)
+            self.tracker.worker = self.worker
+            self.tracker.lock = self.worker.map_lock
+            self.mapper.lock = self.worker.map_lock
+            if self.loop_closer is not None:
+                self.loop_closer.lock = self.worker.map_lock
+                self.loop_closer.mapping_worker = self.worker
+                # the LoopClosing thread: detection never blocks triangulation
+                self.loop_worker = LoopWorker(self)
+                # detached, abortable global BA: a correction returns at once
+                self.gba_worker = GBAWorker(self.mapper)
+                self.loop_closer.gba_worker = self.gba_worker
 
     @property
     def store(self) -> MapStore:
@@ -115,12 +132,6 @@ class SLAMSystem:
         raise NotImplementedError(
             "multi-GPU global BA and retrieval are ROADMAP.md Queue 1 item 17")
 
-    def save_atlas(self, path):
-        raise NotImplementedError("atlas persistence is ROADMAP.md Queue 1 item 14b")
-
-    def load_atlas(self, path):
-        raise NotImplementedError("atlas persistence is ROADMAP.md Queue 1 item 14b")
-
     def track_features(self, feats, timestamp: float):
         """Feed pre-extracted features (testing / offline pipelines)."""
         feats = feats.to(self.device)
@@ -132,27 +143,43 @@ class SLAMSystem:
         return out
 
     def finish(self):
-        """Drain pending work (a no-op in the synchronous pipeline)."""
+        """Drain the mapping, loop and GBA queues in topological order
+        (mapping feeds loop, loop feeds GBA) and raise a worker's exception
+        again; a no-op in the synchronous pipeline. Call it before reading
+        the final map or saving trajectories."""
+        for w in (self.worker, self.loop_worker, self.gba_worker):
+            if w is not None:
+                w.drain()
 
     def shutdown(self):
-        """Nothing to stop in the synchronous pipeline."""
+        """System::Shutdown: drain and stop the worker threads, in the same
+        order."""
+        for w in (self.worker, self.loop_worker, self.gba_worker):
+            if w is not None:
+                w.drain()
+                w.stop()
 
     def activate_localization_mode(self):
-        self.tracker.localization_only = True
+        """Track against the frozen map: no keyframes, so no mapping or loop
+        closing."""
+        with self.tracker.lock:
+            self.tracker.localization_only = True
 
     def deactivate_localization_mode(self):
-        self.tracker.localization_only = False
+        with self.tracker.lock:
+            self.tracker.localization_only = False
 
     def _handle_lost(self):
         """A mature map is stored and a fresh one starts; an immature one
         (<= mature_map_kfs keyframes) is discarded in place."""
-        if self.store.kf_valid.sum() > self.cfg.tracker.mature_map_kfs:
-            store = self.atlas.create_new_map()
-        else:
-            store = self.atlas.reset_active_map()
-        self._rewire(store)
-        self.tracker.reset_for_new_map(store)
-        self._traj_mark = len(self.tracker.trajectory)
+        with self.tracker.lock:
+            if self.store.kf_valid.sum() > self.cfg.tracker.mature_map_kfs:
+                store = self.atlas.create_new_map()
+            else:
+                store = self.atlas.reset_active_map()
+            self._rewire(store)
+            self.tracker.reset_for_new_map(store)
+            self._traj_mark = len(self.tracker.trajectory)
 
     def _rewire(self, store):
         self.mapper.store = store
@@ -212,11 +239,16 @@ class SLAMSystem:
 
     def weld_after_merge(self, k_new: int, win_mps) -> None:
         """The welding passes after a merge: seam fuse, window BA, global
-        polish with the oldest keyframe fixed."""
+        polish with the oldest keyframe fixed. Called without the map lock:
+        each stage takes it for its host work, so tracking overlaps the
+        solves (mapping stays paused by the caller)."""
         target = self.store
-        if self.loop_closer is not None and target.kf_valid[k_new]:
-            window = [k_new] + [int(j) for j in target.covisible_kfs(k_new, n=8, min_weight=1)]
-            self.loop_closer._fuse_loop_points(window, np.asarray(win_mps))
+        if self.loop_closer is not None:
+            with self.loop_closer.lock:
+                if target is self.store and target.kf_valid[k_new]:
+                    window = [k_new] + [int(j) for j in target.covisible_kfs(
+                        k_new, n=8, min_weight=1)]
+                    self.loop_closer._fuse_loop_points(window, np.asarray(win_mps))
         self.mapper.local_ba(k_new)
         lc = self.cfg.loop
         self.mapper.run_global_ba(fixed_ids=[int(target.valid_kf_ids()[0])],
@@ -226,6 +258,26 @@ class SLAMSystem:
     @property
     def trajectory(self):
         return self.tracker.trajectory
+
+    def trajectory_tum(self) -> str:
+        """TUM lines `t tx ty tz qx qy qz qw` (camera-to-world) of every
+        tracked frame, rebuilt through its reference keyframe so that loop and
+        GBA corrections reach it (System::SaveTrajectoryTUM)."""
+        from ..utils import trajectory as TJ
+
+        return "\n".join(TJ.tum_lines(TJ.recovered(self.tracker.trajectory))) + "\n"
+
+    def save_trajectory(self, path, fmt: str = "tum"):
+        """fmt: tum | euroc | kitti (SaveTrajectory{TUM,EuRoC,KITTI})."""
+        from ..utils import trajectory as TJ
+
+        TJ.save(path, self.tracker.trajectory, fmt)
+
+    def save_keyframe_trajectory(self, path, fmt: str = "tum"):
+        """SaveKeyFrameTrajectoryTUM: the active map's keyframe poses."""
+        from ..utils import trajectory as TJ
+
+        TJ.save(path, TJ.keyframe_trajectory(self.store), fmt)
 
     def save_map(self, path):
         """Single-map .npz snapshot of the active map (the reference format)."""
@@ -239,3 +291,14 @@ class SLAMSystem:
         store = store_from_reference(path)
         self.atlas.maps[self.atlas.active_idx] = store
         self._rewire(store)
+
+    def save_atlas(self, path):
+        """Whole-session snapshot (SaveAtlas): every map plus a manifest with
+        md5 sums, in the reference's format."""
+        self.atlas.save(path)
+
+    def load_atlas(self, path):
+        """Replace the atlas with a snapshot written by either package's
+        save_atlas; raises IOError when a map file's md5 differs."""
+        self.atlas = Atlas.load(path)
+        self._rewire(self.atlas.active)

@@ -7,7 +7,11 @@ the tracker's device. States: NOT_INITIALIZED -> OK -> (RECENTLY_)LOST; a
 track lost on a mature map relocalizes (global retrieval, brute-force
 matching through the row_top2 kernel on CUDA, batched PnP RANSAC, pose
 optimization). Each new keyframe goes to the local mapper and then to the
-loop closer, inline.
+loop closer: inline in the synchronous pipeline, through the mapping
+worker's queue in the async one (slam/pipeline.py). There the tracker holds
+the map lock for a frame and releases it around its device work, whose
+inputs it copies under the lock; a solve that a whole-map move
+(store.big_change_idx) overtook is discarded.
 
 Out of this slice, and raising NotImplementedError when reached:
 visual-inertial tracking (ROADMAP.md Queue 1 item 15) and stereo/RGB-D depth
@@ -166,13 +170,17 @@ class Tracker:
             min_motion_matches=c.min_motion_matches)
         self._local_ids = None
         self._seen_big = -1
+        # async pipeline wiring (slam/pipeline.py): SLAMSystem sets the
+        # shared map lock and the mapping worker the keyframes go to
         self.lock = NULL_LOCK
         self.worker = None
         self.localization_only = False
 
     def _t(self, x, dtype=torch.float32):
-        """Host array -> tensor on the tracker's device (float32 boundary)."""
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        """Host array -> a COPY on the tracker's device (float32 boundary).
+        Never a view of a store array: work that runs off the map lock
+        would otherwise read what the mapping worker writes."""
+        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
 
     # ------------------------------------------------------------------
     def reset_for_new_map(self, store: MapStore):
@@ -276,11 +284,17 @@ class Tracker:
             return
         ref = self.init_ref
         rf, ff = ref.feats, frame.feats
-        idx, _ = search.search_for_initialization(
-            rf.xy, rf.desc, rf.mask, ff.xy, ff.desc, ff.mask,
-            window=cfg.init_window, max_dist=cfg.init_match_max_dist,
-            ratio=cfg.init_match_ratio)
-        idx = idx.cpu().numpy()
+
+        def run_search():  # frame-owned inputs: no store access
+            idx, _ = search.search_for_initialization(
+                rf.xy, rf.desc, rf.mask, ff.xy, ff.desc, ff.mask,
+                window=cfg.init_window, max_dist=cfg.init_match_max_dist,
+                ratio=cfg.init_match_ratio)
+            return idx.cpu().numpy()
+
+        # the (re)init attempts touch no store state: holding the lock
+        # through them starves the mapping worker of the fresh map
+        idx = self._unlocked(run_search)
         n_matches = int((idx >= 0).sum())
         if n_matches < cfg.min_init_matches:
             self.init_ref = frame
@@ -296,10 +310,14 @@ class Tracker:
         m1[: len(slots1)] = xn1[slots1]
         m2[: len(slots1)] = xn2[slots2]
         mask = self._t(np.arange(N) < len(slots1), torch.bool)
-        samples = twoview.draw_samples(mask, 200, self._gen)
-        res = twoview.reconstruct_two_views(self._t(m1), self._t(m2), mask, samples,
-                                            1.0 / self.cam.fx)
-        res = {k: v.cpu().numpy() for k, v in res.items()}
+        m1_t, m2_t = self._t(m1), self._t(m2)
+
+        def run_ransac():  # device-heavy H/F RANSAC: no store access
+            samples = twoview.draw_samples(mask, 200, self._gen)
+            res = twoview.reconstruct_two_views(m1_t, m2_t, mask, samples, 1.0 / self.cam.fx)
+            return {k: v.cpu().numpy() for k, v in res.items()}
+
+        res = self._unlocked(run_ransac)
         if (not bool(res["ok"]) or int(res["n_good"]) < cfg.min_init_points
                 or float(res["med_parallax_deg"]) < cfg.min_init_med_parallax_deg):
             return
@@ -324,7 +342,9 @@ class Tracker:
         store.assign_observations(kf1, s2, ids)
         store.update_covisibility(kf1)
         if self.mapper is not None:
-            self.mapper.initial_ba(kf0, kf1)
+            # the mapper takes the lock itself for its build and write-back:
+            # holding it through a 20-iteration LM starves the worker
+            self._unlocked(lambda: self.mapper.initial_ba(kf0, kf1))
         depths = (store.mp_pos[ids] @ store.kf_R[kf0].T + store.kf_t[kf0])[:, 2]
         med = float(np.median(depths))
         if med <= 0:  # degenerate init; roll back
@@ -357,7 +377,19 @@ class Tracker:
         R_v, t_v = self.velocity
         return R_v @ R_l, R_v @ t_l + t_v
 
+    def _unlocked(self, fn):
+        """Run a device computation and its blocking read-back with the map
+        lock released. Its inputs must be copies taken under the lock; the
+        caller re-validates ids afterwards."""
+        self.lock.release()
+        try:
+            return fn()
+        finally:
+            self.lock.acquire()
+
     def _revalidate_obs(self, obs):
+        """Drop observations of points culled while a kernel ran off the
+        lock."""
         store = self.store
         return np.where((obs >= 0) & store.mp_valid[np.clip(obs, 0, store.m_max - 1)],
                         obs, -1).astype(np.int32)
@@ -369,12 +401,14 @@ class Tracker:
         valid = (obs >= 0) & frame.host.mask
         pts = store.mp_pos[np.clip(obs, 0, store.m_max - 1)]
         inv_sigma2 = 1.0 / (1.2 ** (2.0 * frame.host.octave))
-        res = pose_opt.pose_optimize(
-            self.cam.kind, self.cam.params, self._t(R0), self._t(t0), self._t(pts),
-            frame.feats.xy, self._t(inv_sigma2), self._t(valid, torch.bool))
-        frame.R = res["R"].cpu().numpy()
-        frame.t = res["t"].cpu().numpy()
-        inlier = res["inlier"].cpu().numpy()
+        args = (self._t(R0), self._t(t0), self._t(pts), frame.feats.xy, self._t(inv_sigma2),
+                self._t(valid, torch.bool))
+
+        def run():  # inputs copied above; the solve waits off the lock
+            res = pose_opt.pose_optimize(self.cam.kind, self.cam.params, *args)
+            return [res[k].cpu().numpy() for k in ("R", "t", "inlier")]
+
+        frame.R, frame.t, inlier = self._unlocked(run)
         frame.obs = self._revalidate_obs(np.where(inlier, obs, -1))
         return int(inlier.sum())
 
@@ -396,15 +430,21 @@ class Tracker:
         cap = cfg.local_mp_cap
         mp_pos, mp_desc, mp_valid, mp_ids_p = self._pad_mps(mp_ids, cap)
         f = frame.feats
-        for radius in (cfg.motion_window, cfg.motion_window_retry):
-            idx, _, _ = search.search_by_projection(
-                self.cam.kind, self.cam.params, (self.cam.width, self.cam.height),
-                self._t(R0), self._t(t0), mp_pos, mp_desc, mp_valid,
-                f.xy, f.desc, f.octave, f.mask, radius=radius, max_dist=cfg.th_high)
-            idx = idx.cpu().numpy()
-            n = int((idx >= 0).sum())
-            if n >= cfg.min_motion_matches:
-                break
+        R0_t, t0_t = self._t(R0), self._t(t0)
+
+        def run_search():  # inputs copied by _pad_mps; the kernels wait off the lock
+            for radius in (cfg.motion_window, cfg.motion_window_retry):
+                idx, _, _ = search.search_by_projection(
+                    self.cam.kind, self.cam.params, (self.cam.width, self.cam.height),
+                    R0_t, t0_t, mp_pos, mp_desc, mp_valid,
+                    f.xy, f.desc, f.octave, f.mask, radius=radius, max_dist=cfg.th_high)
+                idx = idx.cpu().numpy()
+                n = int((idx >= 0).sum())
+                if n >= cfg.min_motion_matches:
+                    break
+            return idx, n
+
+        idx, n = self._unlocked(run_search)
         if n < cfg.min_motion_matches:
             return False
         frame.obs = self._revalidate_obs(
@@ -422,12 +462,18 @@ class Tracker:
         k = self.ref_kf
         if k < 0 or not store.kf_valid[k]:
             return False
+        # copies under the lock: slot reuse may overwrite the keyframe's
+        # rows while the kernel runs off it
         kf_obs = store.kf_obs[k].copy()
         maskB = (kf_obs >= 0) & store.kf_mask[k]
-        idx, _ = search.search_brute_force(
-            frame.feats.desc, frame.feats.mask, self._t(store.kf_desc[k]),
-            self._t(maskB, torch.bool), max_dist=cfg.th_low, ratio=0.9)
-        idx = idx.cpu().numpy()
+        descB, maskB_t = self._t(store.kf_desc[k]), self._t(maskB, torch.bool)
+
+        def run():
+            idx, _ = search.search_brute_force(frame.feats.desc, frame.feats.mask, descB,
+                                               maskB_t, max_dist=cfg.th_low, ratio=0.9)
+            return idx.cpu().numpy()
+
+        idx = self._unlocked(run)
         if int((idx >= 0).sum()) < cfg.min_ref_matches:
             return False
         frame.obs = self._revalidate_obs(np.where(
@@ -465,12 +511,25 @@ class Tracker:
         motion_ids[:n_m] = mp_ids[:n_m]
         zeros = torch.zeros(store.n_slots, dtype=torch.float32, device=self.device)
         f = frame.feats
-        out = fused.track_step(
-            self.cam.kind, self.cam.params, float(self.cam.width), float(self.cam.height),
-            self._t(R0), self._t(t0), dm.pos, dm.desc, dm.normal, dm.dmin, dm.dmax,
-            dm.valid, self._t(motion_ids, torch.int64), self._t(self._local_ids, torch.int64),
-            f.xy, f.desc, f.octave, f.mask, zeros, zeros, self._fused_cfg)
-        out = {k: v.cpu().numpy() for k, v in out.items()}  # one host copy per frame
+        # the mirror's tables are replaced, never written, by later syncs, and
+        # the id vectors and poses are copies: the step may run off the lock
+        args = (self._t(R0), self._t(t0)) + dm.snapshot() + (
+            self._t(motion_ids, torch.int64), self._t(self._local_ids, torch.int64))
+
+        def run():
+            out = fused.track_step(
+                self.cam.kind, self.cam.params, float(self.cam.width), float(self.cam.height),
+                *args, f.xy, f.desc, f.octave, f.mask, zeros, zeros, self._fused_cfg)
+            return {k: v.cpu().numpy() for k, v in out.items()}  # one host copy per frame
+
+        out = self._unlocked(run)
+        # a whole-map move (loop correction, GBA propagation) may have landed
+        # meanwhile: the pose is in the old gauge. Discard it; with the motion
+        # model reset, the reference-keyframe route re-anchors
+        if store.big_change_idx != self._seen_big:
+            self._seen_big = store.big_change_idx
+            self.velocity = None
+            return False
         n1, n_in1, n_in2 = (int(x) for x in out["stats"])
         if n1 < cfg.min_motion_matches or n_in1 < cfg.min_pose_inliers:
             return False  # staged fallbacks (ref-KF brute force) take over
@@ -694,13 +753,17 @@ class Tracker:
             (mp_pos, mp_desc, mp_valid, ids_p, mp_normal, mp_dmin,
              mp_dmax) = self._pad_mps(local_mps, cap, with_stats=True)
             f = frame.feats
-            idx, _, proj_ok = search.search_by_projection(
-                self.cam.kind, self.cam.params, (self.cam.width, self.cam.height),
-                self._t(frame.R), self._t(frame.t), mp_pos, mp_desc, mp_valid,
-                f.xy, f.desc, f.octave, f.mask, radius=cfg.local_window,
-                max_dist=cfg.th_high, ratio=1.0, mp_normal=mp_normal,
-                mp_dmin=mp_dmin, mp_dmax=mp_dmax)
-            idx, proj_ok = idx.cpu().numpy(), proj_ok.cpu().numpy()
+            R_t, t_t = self._t(frame.R), self._t(frame.t)
+
+            def run():  # inputs copied by _pad_mps; the kernel waits off the lock
+                idx, _, proj_ok = search.search_by_projection(
+                    self.cam.kind, self.cam.params, (self.cam.width, self.cam.height),
+                    R_t, t_t, mp_pos, mp_desc, mp_valid, f.xy, f.desc, f.octave, f.mask,
+                    radius=cfg.local_window, max_dist=cfg.th_high, ratio=1.0,
+                    mp_normal=mp_normal, mp_dmin=mp_dmin, mp_dmax=mp_dmax)
+                return idx.cpu().numpy(), proj_ok.cpu().numpy()
+
+            idx, proj_ok = self._unlocked(run)
             vis_ids = ids_p[proj_ok[: len(ids_p)] & (ids_p >= 0)]
             store.mp_visible[vis_ids[store.mp_valid[vis_ids]]] += 1
             new = (idx >= 0) & (frame.obs < 0)
@@ -755,6 +818,12 @@ class Tracker:
         self.ref_kf = k
         self.frames_since_kf = 0
         self._local_ids = None
+        if self.worker is not None:
+            # async pipeline: hand the keyframe to the mapping worker
+            # (LocalMapping::InsertKeyFrame) and keep tracking; refinements
+            # reach the tracker through the shared map under the lock
+            self.worker.enqueue(store, k)
+            return
         if self.mapper is not None:
             self.mapper.process_keyframe(k)
         if self.loop_closer is not None:

@@ -49,33 +49,39 @@ def _jax_system(sp, world):
     return SLAMSystem(cam, ext, cfg), ext
 
 
-def build(pkg, device=None, size=SMALL, spec=browse_spec):
+def build(pkg, device=None, size=SMALL, spec=browse_spec, async_mapping=False):
     """(system, extractor) of package `pkg` ("tpu" or "torch") at `size`,
-    configured by `spec` (browse_spec or reloc_spec)."""
+    configured by `spec` (browse_spec or reloc_spec), in the async pipeline
+    when `async_mapping`."""
     if pkg == "torch":
         from hfnet_slam_torch.scenes import browse_system
-        return browse_system(size, device, spec=spec)
+        return browse_system(size, device, spec=spec, async_mapping=async_mapping)
     from hfnet_slam_tpu.models.fake import SyntheticWorld
     sp = spec(size)
+    sp["system"]["async_mapping"] = async_mapping
     return _jax_system(sp, SyntheticWorld.cloud(**sp["world"]))
 
 
-def build_loop(pkg, device=None, size=LOOP_SMALL):
+def build_loop(pkg, device=None, size=LOOP_SMALL, async_mapping=False):
     """(system, extractor) of the loop circuit of package `pkg` at `size`."""
     if pkg == "torch":
         from hfnet_slam_torch.scenes import loop_system
-        return loop_system(size, device)
+        return loop_system(size, device, async_mapping=async_mapping)
     from hfnet_slam_tpu.models.fake import SyntheticWorld
     sp = loop_spec(size)
+    sp["system"]["async_mapping"] = async_mapping
     return _jax_system(sp, SyntheticWorld(*ring_world(**sp["world"])))
 
 
-def run(sys_, ext, lo, hi, jolt_at=None):
-    """Track frames [lo, hi). Returns (est centers, gt centers, tracked ids)."""
+def run(sys_, ext, lo, hi, jolt_at=None, lockstep=False):
+    """Track frames [lo, hi). Returns (est centers, gt centers, tracked ids).
+    `lockstep` drains the async pipeline after every frame (finish())."""
     est, gt, ids = [], [], []
     for i in range(lo, hi):
         R, t = browse_pose(i, jolt_at)
         _, Re, te = sys_.track_features(ext(R, t), 0.05 * i)
+        if lockstep:
+            sys_.finish()
         if Re is not None:
             est.append(-np.asarray(Re).T @ np.asarray(te))
             gt.append(-R.T @ t)
@@ -83,11 +89,12 @@ def run(sys_, ext, lo, hi, jolt_at=None):
     return np.asarray(est), np.asarray(gt), ids
 
 
-def run_loop(sys_, ext, size, n=None):
+def run_loop(sys_, ext, size, n=None, lockstep=False):
     """Track the circuit's first n frames (all by default). Returns the
     scale-corrected ATE of the track-time poses (pre) and of the poses
     rebuilt through the final map's keyframes (post), bench.py's sync
-    protocol, and the number of tracked frames."""
+    protocol, and the number of tracked frames. `lockstep` drains the async
+    pipeline after every frame."""
     from hfnet_slam_torch.evaluation import ate
     from hfnet_slam_torch.utils import trajectory as TJ
 
@@ -96,6 +103,8 @@ def run_loop(sys_, ext, size, n=None):
     for i in range(n):
         R, t = ring_pose(i, size["frames"], size["total_angle"])
         _, Re, te = sys_.track_features(ext(R, t), 0.05 * i)
+        if lockstep:
+            sys_.finish()
         if Re is not None:
             live.append(-np.asarray(Re).T @ np.asarray(te))
             gt.append(-R.T @ t)

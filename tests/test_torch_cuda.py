@@ -1,5 +1,6 @@
-"""The hand-written row_top2 kernel against its plain version, on the card,
-the loop-closing and relocalization paths that launch it, and the HF-Net
+"""The hand-written row_top2 kernel against its plain version, on the card
+(from one thread and from two at once, as the async pipeline calls it), the
+loop-closing and relocalization paths that launch it, and the HF-Net
 extractor and its prefetch pipeline on the card.
 
 These tests need an NVIDIA card (marker `cuda`) and skip without one. The
@@ -110,6 +111,43 @@ def test_kernel_rejects_non_contiguous(cuda):
     A, Bm, m = _problem(64, 64, 32)
     with pytest.raises(ValueError, match="contiguous"):
         B.row_top2(A.t().contiguous().t(), Bm, m)
+
+
+def test_kernel_from_two_threads_at_one_shape(cuda):
+    """The async pipeline launches row_top2 from the loop worker while the
+    tracker launches it too: both threads on the default stream share one
+    cached plan (scratch and merge tickets) per shape, which is safe because
+    the stream orders their launches. Two threads, 200 calls each at the
+    loop-association shape, each on its own inputs: every idx equals the
+    plain version, and every launch is counted on its thread."""
+    import threading
+
+    shape = (1024, 2048, 256)
+    B.reset_counts()
+    errs, bad = [], []
+
+    def run(seed):
+        try:
+            A, Bm, m = _problem(*shape, seed=seed)
+            _, _, ri = B.row_top2_reference(A, Bm, m)
+            for _ in range(200):
+                _, _, idx = B.row_top2(A, Bm, m)
+                if not torch.equal(idx, ri):
+                    bad.append(int((idx != ri).sum()))
+        except Exception as e:  # pragma: no cover - failure path
+            errs.append(e)
+
+    ths = [threading.Thread(target=run, args=(s,), name=f"t{s}") for s in (1, 2)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not errs, errs
+    assert not bad, f"{len(bad)} calls gave idx differing from the plain version"
+    assert B.shape_launches[shape] == 400
+    assert B.thread_shape_launches[("t1",) + shape] == 200
+    assert B.thread_shape_launches[("t2",) + shape] == 200
 
 
 def test_relocalization_launches_the_kernel(cuda):

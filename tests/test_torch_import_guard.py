@@ -48,3 +48,28 @@ def test_card_tests_import_without_jax():
     """tests/test_torch_cuda.py runs on the GPU machine, which has no jax."""
     r = _run("sys.path.insert(0, 'tests'); import test_torch_cuda")
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_no_port_module_imports_yaml_or_pil():
+    """The card's machine has neither PyYAML nor Pillow: the settings reader
+    and the PNG reader are the port's own. No import statement anywhere in
+    the port (function-local ones included) names them, and importing every
+    module loads neither."""
+    import ast
+
+    root = os.path.join(REPO, "hfnet_slam_torch")
+    found = []
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                tree = ast.parse(open(os.path.join(d, f)).read())
+                for node in ast.walk(tree):
+                    names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                             else [node.module or ""] if isinstance(node, ast.ImportFrom)
+                             else [])
+                    found += [(f, n) for n in names if n.split(".")[0] in ("yaml", "PIL")]
+    assert not found, found
+    r = _run("import hfnet_slam_torch.examples.run_euroc\n"
+             "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('yaml', 'PIL'))\n"
+             "sys.exit(3 if bad else 0)")
+    assert r.returncode == 0, r.stdout + r.stderr

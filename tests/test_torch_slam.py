@@ -74,6 +74,7 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
     from hfnet_slam_torch.slam.tracking import Tracker
     from hfnet_slam_torch.models.extractor import HFExtractor
     from hfnet_slam_torch.models.hfnet import HFNet
+    from hfnet_slam_torch.examples import run_euroc
     from hfnet_slam_torch.scenes import euroc_hfnet_system
 
     cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
@@ -83,6 +84,8 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
     for make in (lambda: build("torch", device=None),
                  lambda: SLAMSystem(cam, None, SystemConfig(loop_closing=False)),
                  lambda: SLAMSystem(cam, None, SystemConfig()),
+                 lambda: SLAMSystem(cam, None, SystemConfig(async_mapping=True)),
+                 lambda: run_euroc.main(["unused_dir", "--config", "unused.yaml"]),
                  lambda: Tracker(cam, store),
                  lambda: LocalMapper(cam, store),
                  lambda: retrieval.score_all(store, np.ones(8, np.float32)),
@@ -108,9 +111,9 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
     ("baseline", 0.1, "item 16"),
 ])
 def test_out_of_slice_configs_raise(field, value, item):
-    """Loop closing (item 14) is in the port now: a loop-closing system
-    constructs on the CPU, wired to the tracker. The async pipeline (item
-    14b) and the stereo rig (item 16) still raise, naming their item."""
+    """Loop closing (item 14) and the async pipeline (item 14b) are in the
+    port now: such systems construct on the CPU, wired as the reference
+    wires them. The stereo rig (item 16) still raises, naming its item."""
     from hfnet_slam_torch.geometry import cameras
     from hfnet_slam_torch.slam.loop_closing import LoopCloser
     from hfnet_slam_torch.slam.system import SLAMSystem, SystemConfig
@@ -119,15 +122,34 @@ def test_out_of_slice_configs_raise(field, value, item):
                        loop_closing=False)
     setattr(cfg, field, value)
     cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
+    if field == "baseline":
+        with pytest.raises(NotImplementedError, match=item):
+            SLAMSystem(cam, None, cfg, device="cpu")
+        return
     if field == "loop_closing":
         sys_ = SLAMSystem(cam, None, cfg, device="cpu")
         assert isinstance(sys_.loop_closer, LoopCloser)
         assert sys_.tracker.loop_closer is sys_.loop_closer and sys_.loop_closer.system is sys_
+        assert sys_.worker is None  # the reference's defaults: loop closing on, sync
         assert isinstance(SLAMSystem(cam, None, SystemConfig(), device="cpu").loop_closer,
-                          LoopCloser)  # the reference's defaults: loop closing on, sync
+                          LoopCloser)
         cfg.async_mapping = True
-    with pytest.raises(NotImplementedError, match=item):
-        SLAMSystem(cam, None, cfg, device="cpu")
+    sys_ = SLAMSystem(cam, None, cfg, device="cpu")
+    try:
+        lock = sys_.worker.map_lock
+        assert sys_.tracker.worker is sys_.worker
+        assert sys_.tracker.lock is sys_.mapper.lock is lock
+        if cfg.loop_closing:
+            assert sys_.loop_closer.lock is lock
+            assert sys_.loop_closer.mapping_worker is sys_.worker
+            assert sys_.loop_closer.gba_worker is sys_.gba_worker is not None
+            assert sys_.loop_worker is not None
+        else:
+            assert sys_.loop_worker is None and sys_.gba_worker is None
+        sys_.finish()
+    finally:
+        sys_.shutdown()
+    assert not sys_.worker._thread.is_alive()
 
 
 def test_imu_and_stereo_entry_points_raise():
@@ -142,8 +164,6 @@ def test_imu_and_stereo_entry_points_raise():
         sys_t.track_stereo_inertial(None, None, 0.0, np.zeros((1, 7)))
     with pytest.raises(NotImplementedError, match="item 17"):
         sys_t.install_mesh(None)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        sys_t.save_atlas("unused")
     # relocalization is ported: on an empty map it finds no candidate
     assert sys_t.tracker._relocalize(Frame(feats=ext(*browse_pose(0)), timestamp=0.0)) is False
 
