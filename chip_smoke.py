@@ -12,8 +12,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      card at the slice's and the loop-association shapes in both directions,
      unaligned shapes, a D that is not a multiple of 4, inputs whose base is
      not 16-byte aligned, exact ties, an all-masked B and NB = 1, then the
-     gated mutual matcher; times of the kernel, the plain version and a
-     library yardstick at four shapes;
+     gated mutual matcher; a repeat-launch stress (25 launches at each timed
+     shape and at the small shapes whose column splits merge through the
+     last-block ticket, every launch's idx, best and second held against
+     the plain version); times of the kernel, the plain version and a
+     library yardstick at six shapes;
   4. browse: monocular SLAM on the synthetic browse trajectory at
      production widths (1024 slots, 256-d descriptors, 4096-d global
      descriptors), 120 frames, with a 0.1 rad camera jolt from frame 80 on
@@ -57,15 +60,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      with seeded random weights, 1000 features, 4 levels): one TUM line per
      tracked frame, the timing report, row_top2 on the path (re-checked),
      and save_atlas / load_atlas into a fresh system (every array equal; one
-     flipped byte refused), for the runner's system and phase 8's.
+     flipped byte refused), for the runner's system and phase 8's;
+ 10. visual-inertial: bench.py's _vi_metrics scenario at production widths
+     (scenes.vi_system(VI_PRODUCTION): 100 frames at 10 Hz with exact 200 Hz
+     IMU, sync, loop closing off): the IMU initialized through VIBA1 at
+     least, vi_init_scale_err <= 0.03 and ate_vi_metric_m <= 0.2 m and <= 5%
+     of the path (bench.py's protocol: Horn alignment over frames > 60;
+     BENCH_r05: 0.0091 / 0.0662), frame p50 / p99, the preintegration's rows,
+     ms and launches per VI frame (launches from torch.profiler on two
+     calls), per-stage ms (the per-frame VI solves, the inertial window BA,
+     each init stage, FullInertialBA) and row_top2 launches by shape;
+ 11. async visual-inertial blackout: tests/test_vi_dropout.py's async plan at
+     production widths (90 frames, 60-69 featureless) with that test's
+     assertions, plus at frame 45 every keypoint shifted 40 px with its
+     descriptor kept, which sends the frame to the reference keyframe's
+     brute force; row_top2 launches by thread and shape, at least 2 on the
+     VI path, and the kernel re-checked exactly on the first VI-path call
+     with a non-empty maskA.
 Phases 5, 6, 8 and 9 keep the inputs of their first loop-association,
 relocalization or matcher calls and, after the phase, hold the kernel against
 its plain version on them (matched indices that differ, and by how much in
 float64). The kernel's main-path launch counts are zeroed just before each
-of phases 4-9's paths and read just after. The line before the last is one JSON
+of phases 4-11's paths and read just after. The line before the last is one JSON
 object describing every kernel; the last line is {"ok": true, "device":
 {...}}. Needs one CUDA card and no network. Without a card, or without the
 repository beside it, it exits non-zero before printing a result.
+`--only kernel` runs phases 1-3 and `--only vi` phases 1-3, 10 and 11, and
+neither prints the result lines.
 """
 from __future__ import annotations
 
@@ -221,6 +242,38 @@ def _misaligned(torch, x):
     return y
 
 
+STRESS_SHAPES = TIMED_SHAPES + [(130, 4097, 64), (100, 300, 13), (37, 1, 16),
+                                (1000, 777, 256)]
+STRESS_REPEATS = 25
+
+
+def stress_kernel(torch, g, problem):
+    """Repeat-launch stress: STRESS_REPEATS launches at each timed shape and
+    at the small shapes whose column splits merge through the last-block
+    ticket, every launch's idx, best and second held against the plain
+    version on the same inputs. One machine once gave wrong indices from
+    its first call; this tells a card that drifts from a kernel that is
+    wrong. Returns the largest |best/second| error."""
+    from hfnet_slam_torch.ops import bf_match as B
+
+    n, worst = 0, 0.0
+    for NA, NB, D in STRESS_SHAPES:
+        A, Bm, m = problem(NA, NB, D)
+        rb, rs, ri = B.row_top2_reference(A, Bm, m)
+        for rep in range(STRESS_REPEATS):
+            best, second, idx = B.row_top2(A, Bm, m)
+            n_bad = int((idx != ri).sum())
+            err = max(float((best - rb).abs().max()), float((second - rs).abs().max()))
+            check(n_bad == 0, f"stress ({NA},{NB},{D}) launch {rep}: idx differs from the "
+                  f"plain version in {n_bad} rows")
+            check(err <= TOL_SIM, f"stress ({NA},{NB},{D}) launch {rep}: error {err}")
+            worst = max(worst, err)
+            n += 1
+    log(f"kernel stress: {n} launches over {len(STRESS_SHAPES)} shapes, every idx equal "
+        f"to the plain version, max |err| {worst:.3g}")
+    return worst
+
+
 def phase_kernel(torch):
     from hfnet_slam_torch.ops import bf_match as B
 
@@ -295,6 +348,7 @@ def phase_kernel(torch):
     check(derr <= 1e-4, f"gated distances differ by {derr}")
     log(f"kernel gated (1024,1024,256) ratio 0.9: {int((iK >= 0).sum())} matches, "
         f"indices exact, max |dist err| {derr:.3g}")
+    max_err = max(max_err, stress_kernel(torch, g, problem))
 
     timings = []
     for NA, NB, D in TIMED_SHAPES:
@@ -346,11 +400,12 @@ class MatcherCalls:
     result `keep` accepts, and counts the kernel launches made inside such
     calls (from the count of all threads: exact when one thread launches)."""
 
-    def __init__(self, want, active=lambda: True, keep=lambda out: True):
+    def __init__(self, want, active=lambda: True, keep=lambda out: True,
+                 take=lambda dA, mA, dB, mB: True):
         from hfnet_slam_torch.slam import search
 
         self.search, self.real = search, search.search_brute_force
-        self.want, self.active, self.keep = want, active, keep
+        self.want, self.active, self.keep, self.take = want, active, keep, take
         self.first, self.launches = None, 0
 
     def __enter__(self):
@@ -359,7 +414,8 @@ class MatcherCalls:
         def call(dA, mA, dB, mB, **kw):
             if not (self.active() and self.want(dB)):
                 return self.real(dA, mA, dB, mB, **kw)
-            inputs = [x.clone() for x in (dA, mA, dB, mB)] if self.first is None else None
+            inputs = [x.clone() for x in (dA, mA, dB, mB)] \
+                if self.first is None and self.take(dA, mA, dB, mB) else None
             n0 = bf_match.launches
             out = self.real(dA, mA, dB, mB, **kw)
             self.launches += bf_match.launches - n0
@@ -1037,6 +1093,212 @@ def phase_loop_async(torch, smi, sync):
     return launches, by_shape, by_thread, rech, sys_
 
 
+def _integrate_launches(torch, vi):
+    """Kernel launches and device-synced ms of one preintegration call as a
+    function of its rows, launches(n) = fixed + per_row * n, from
+    torch.profiler's count of CUDA launch calls in two calls (10 and 100
+    rows of the VI scene's IMU). None where the profiler saw no launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hfnet_slam_torch.scenes import synth_imu
+
+    rows = synth_imu(0.0, 0.5)
+    vi.integrate(rows[:10])  # warm
+
+    def one(n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            vi.integrate(rows[:n])
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        launch = sum(1 for x in names if "LaunchKernel" in x)
+        kernels = sum(1 for e in prof.events()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        t0 = time.perf_counter()
+        vi.integrate(rows[:n])
+        torch.cuda.synchronize()
+        return launch, kernels, (time.perf_counter() - t0) * 1e3
+
+    (l10, k10, ms10), (l100, k100, ms100) = one(10), one(100)
+    if l100 <= l10:
+        return {"launches": "not measured (the profiler saw no CUDA launch)",
+                "ms_per_row": (ms100 - ms10) / 90}
+    per_row = (l100 - l10) / 90
+    return {"launches_10_rows": l10, "launches_100_rows": l100,
+            "device_kernels_10_rows": k10, "device_kernels_100_rows": k100,
+            "launches_per_row": per_row, "launches_fixed": l10 - 10 * per_row,
+            "ms_10_rows": ms10, "ms_100_rows": ms100, "ms_per_row": (ms100 - ms10) / 90}
+
+
+def _vi_feeds(torch, ext, size, frames, device, dark=(), shift_at=None):
+    """Per frame: features (blank in `dark`; at `shift_at` every keypoint
+    40 px to the right with its descriptor kept, so the projection search
+    misses and the reference keyframe's brute force matches), IMU rows and
+    ground-truth centre."""
+    from hfnet_slam_torch.scenes import synth_imu, vi_blank_features, vi_frame_pose, vi_pose
+
+    blank = vi_blank_features(size).to(device)
+    out = []
+    for i in range(frames):
+        t = i * size["frame_dt"]
+        f = blank if i in dark else ext(*vi_frame_pose(t))
+        if i == shift_at:
+            f = f._replace(xy=f.xy + torch.tensor([40.0, 0.0], device=device))
+        rows = synth_imu(t - size["frame_dt"], t, size["grav"]) if i > 0 else None
+        out.append((t, f, rows, vi_pose(t)[1]))
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_vi(torch, smi):
+    """bench.py's _vi_metrics scenario at production widths (VI_PRODUCTION:
+    100 frames at 10 Hz, exact 200 Hz IMU), sync, loop closing off."""
+    from hfnet_slam_torch.evaluation import ate
+    from hfnet_slam_torch.geometry import imu as IMU
+    from hfnet_slam_torch.optim import inertial
+    from hfnet_slam_torch.scenes import VI_PRODUCTION, vi_system
+
+    size = VI_PRODUCTION
+    n = size["frames"]
+    sys_, ext = vi_system(size)  # device=None: CUDA
+    vi, mapper = sys_.vi, sys_.mapper
+    feeds = _vi_feeds(torch, ext, size, n, sys_.device)
+    integ = _integrate_launches(torch, vi)
+    stages = StageTimes(torch, {
+        "pose_inertial_optimize": (inertial, "pose_inertial_optimize"),
+        "pose_inertial_optimize_marg": (inertial, "pose_inertial_optimize_marg"),
+        "preintegration": (vi, "integrate"),
+        "local_inertial_ba": (mapper, "local_inertial_ba"),
+        "full_inertial_ba": (mapper, "full_inertial_ba"),
+        "init_stage": (vi, "_run_stage"),
+        "local_ba": (mapper, "local_ba")})
+    reset_counts()
+    rows0, calls0 = IMU.rows_integrated, IMU.calls
+    est, gt, when, ms, vi_frames = [], [], [], [], []
+    with stages:
+        for i, (t, f, rows, c) in enumerate(feeds):
+            f0 = time.perf_counter()
+            _, Re, te = sys_.track_features(f, t, imu=rows)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - f0) * 1e3)
+            if sys_.tracker._vi_active():
+                vi_frames.append(i)
+            if Re is not None:
+                est.append(-Re.T @ te)
+                gt.append(c)
+                when.append(i)
+    launches, by_shape = read_counts()
+    rows, calls = IMU.rows_integrated - rows0, IMU.calls - calls0
+    store = sys_.store
+    est, gt, when, ms = np.asarray(est), np.asarray(gt), np.asarray(when), np.asarray(ms)
+    check(store.imu_initialized and vi.stage >= 2, f"IMU stage {vi.stage}, want >= 2")
+    late = when > 60
+    check(late.sum() >= 20, f"{late.sum()} tracked frames after frame 60")
+    _, _, s = ate.align_horn(est[late], gt[late], with_scale=True)
+    scale_err = abs(float(s) - 1.0)
+    ate_m = float(ate.ate_rmse(est[late], gt[late], with_scale=False))
+    path = float(np.linalg.norm(np.diff(gt[late], axis=0), axis=1).sum())
+    rep = stages.report()
+    n_vi = max(len(vi_frames), 1)
+    res = {
+        "imu_initialized": bool(store.imu_initialized), "stage": vi.stage,
+        "frames_tracked": len(est), "frames": n, "vi_frames": len(vi_frames),
+        "keyframes": int(store.kf_valid.sum()), "map_points": int(store.mp_valid.sum()),
+        "vi_init_scale_err": scale_err, "ate_vi_metric_m": ate_m, "path_m": path,
+        "reference_targets": {"vi_init_scale_err": 0.0091, "ate_vi_metric_m": 0.0662},
+        "frame_ms_p50": float(np.percentile(ms[5:], 50)),
+        "frame_ms_p99": float(np.percentile(ms[5:], 99)),
+        "vi_frame_ms_p50": float(np.percentile(ms[vi_frames], 50)) if vi_frames else None,
+        "vi_frame_ms_p99": float(np.percentile(ms[vi_frames], 99)) if vi_frames else None,
+        "preintegration_rows": rows, "preintegration_calls": calls,
+        "preintegration_rows_per_vi_frame": rows / n_vi,
+        "preintegration_ms_per_vi_frame": rep["preintegration"]["ms"] / n_vi,
+        "preintegration_cost": integ,
+        "stage_ms": rep, "init_solve_s_by_stage": dict(vi.stage_seconds),
+        "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape, "card": smi,
+    }
+    if isinstance(integ.get("launches_per_row"), float):
+        res["preintegration_launches_per_vi_frame"] = (
+            integ["launches_fixed"] * calls + integ["launches_per_row"] * rows) / n_vi
+    log("vi: " + json.dumps(res))
+    check(scale_err <= 0.03, f"vi_init_scale_err {scale_err} > 0.03 (BENCH_r05 0.0091)")
+    check(ate_m <= 0.2, f"ate_vi_metric_m {ate_m} > 0.2 m (BENCH_r05 0.0662)")
+    check(ate_m <= 0.05 * path, f"ate_vi_metric_m {ate_m} > 5% of the {path} m path")
+    check(rep["pose_inertial_optimize"]["calls"] + rep["pose_inertial_optimize_marg"]["calls"]
+          > 0 and rep["local_inertial_ba"]["calls"] > 0 and rep["full_inertial_ba"]["calls"] > 0,
+          f"a VI stage never ran: {rep}")
+    return launches, by_shape, res
+
+
+def phase_vi_async(torch, smi):
+    """tests/test_vi_dropout.py's async plan at production widths: 90 frames
+    at 10 Hz, frames 60-69 featureless, and at frame 45 the keypoints shifted
+    40 px with their descriptors kept (the projection search misses, the
+    reference keyframe's brute force matches): the first VI-path
+    brute-force call with a non-empty maskA is re-checked exactly."""
+    from hfnet_slam_torch.evaluation import ate
+    from hfnet_slam_torch.scenes import VI_DROPOUT, VI_PRODUCTION, vi_system
+    from hfnet_slam_torch.slam.tracking import LOST, OK, RECENTLY_LOST
+
+    size = dict(VI_PRODUCTION, frame_dt=VI_DROPOUT["frame_dt"], grav=VI_DROPOUT["grav"])
+    n, dark, shift_at = VI_DROPOUT["frames"], VI_DROPOUT["blackout"], 45
+    sys_, ext = vi_system(VI_PRODUCTION, async_mapping=True)  # device=None: CUDA
+    feeds = _vi_feeds(torch, ext, size, n, sys_.device, dark=dark, shift_at=shift_at)
+    vi_path = lambda: sys_.store.imu_initialized  # noqa: E731
+    reset_counts()
+    states, est, gt, when, ms = [], [], [], [], []
+    try:
+        with MatcherCalls(lambda dB: True, vi_path,
+                          take=lambda dA, mA, dB, mB: bool(mA.any())) as calls:
+            for i, (t, f, rows, c) in enumerate(feeds):
+                f0 = time.perf_counter()
+                st, Re, te = sys_.track_features(f, t, imu=rows)
+                ms.append((time.perf_counter() - f0) * 1e3)
+                states.append(st)
+                if Re is not None:
+                    est.append(-Re.T @ te)
+                    gt.append(c)
+                    when.append(i)
+            sys_.finish()  # raises a worker's exception: the phase fails
+        launches, by_shape = read_counts()
+        by_thread = read_thread_counts()
+        with sys_.worker.map_lock:
+            check_store_invariants(sys_.store)
+    finally:
+        sys_.shutdown()
+    est, gt, when = np.asarray(est), np.asarray(gt), np.asarray(when)
+    pre_w = (when >= 30) & (when < 60)
+    R_al, t_al, _ = ate.align_horn(est[pre_w], gt[pre_w], with_scale=False)
+    dr = np.isin(when, np.arange(60, 70))
+    err_dr = np.linalg.norm((R_al @ est[dr].T).T + t_al - gt[dr], axis=1)
+    late = when >= 72
+    err_late = float(ate.ate_rmse(est[late], gt[late], with_scale=False))
+    post = states[72:]
+    res = {
+        "imu_initialized": bool(sys_.store.imu_initialized), "stage": sys_.vi.stage,
+        "states": [int(x) for x in states], "frames_tracked": len(est), "frames": n,
+        "dead_reckoning_max_err_m": float(err_dr.max()) if dr.any() else None,
+        "post_recovery_metric_ate_m": err_late,
+        "frame_ms_p50": float(np.percentile(ms[5:], 50)),
+        "frame_ms_p99": float(np.percentile(ms[5:], 99)),
+        "row_top2_launches": launches, "row_top2_launches_on_vi_path": calls.launches,
+        "row_top2_launches_by_shape": by_shape, "row_top2_launches_by_thread": by_thread,
+        "card": smi,
+    }
+    log("vi async: " + json.dumps(res))
+    check(sys_.store.imu_initialized, "the staged init never ran on the mapping worker")
+    check(LOST not in states, "the blackout killed the map")
+    check(RECENTLY_LOST in states[60:70], "the blackout was not detected")
+    check(np.mean([x == OK for x in post]) >= 0.8, f"after the blackout: {post}")
+    check(all(x == OK for x in states[-6:]), f"not OK at the end: {states[-6:]}")
+    check(all(i in set(when.tolist()) for i in range(61, 70)), "a blackout frame without a pose")
+    check(err_dr.max() < 1.0, f"dead reckoning drifted {err_dr.max():.2f} m")
+    check(err_late < 0.5, f"post-recovery metric ATE {err_late:.3f} m")
+    check(calls.launches >= 2, f"row_top2 launched {calls.launches} times on the VI path")
+    rech = recheck(torch, "VI reference-keyframe match", calls.first, exact=True)
+    return launches, by_shape, by_thread, rech
+
+
 def atlas_round_trip(sys_, path):
     """save_atlas, then load_atlas into a fresh system of the same
     capacities: every array of every map must be equal, and one flipped byte
@@ -1125,7 +1387,14 @@ def phase_euroc_runner(torch, smi, async_sys):
     return launches, by_shape, rech
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description="chip smoke test of the port (one GPU)")
+    ap.add_argument("--only", choices=("kernel", "vi"),
+                    help="run phases 1-3 (and with 'vi' phases 10-11) and stop, without the "
+                    "result lines")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1137,6 +1406,12 @@ def main():
     smi = phase_environment(torch)
     phase_build()
     max_err, timings = phase_kernel(torch)
+    if args.only == "vi":
+        phase_vi(torch, smi)
+        phase_vi_async(torch, smi)
+    if args.only:
+        log(f"chip_smoke: --only {args.only}: those phases passed; no result printed")
+        return 0
     t0 = time.perf_counter()
     n_browse, shapes_browse = phase_slice(torch, smi)
     t1 = time.perf_counter()
@@ -1151,9 +1426,13 @@ def main():
         phase_loop_async(torch, smi, loop_res)
     t5 = time.perf_counter()
     n_euroc, shapes_euroc, rech_euroc = phase_euroc_runner(torch, smi, async_sys)
+    t6 = time.perf_counter()
+    n_vi, shapes_vi, _ = phase_vi(torch, smi)
+    t7 = time.perf_counter()
+    n_via, shapes_via, threads_via, rech_via = phase_vi_async(torch, smi)
     log(f"phase seconds: browse {t1 - t0:.1f}, loop {t2 - t1:.1f}, "
         f"relocalization {t3 - t2:.1f}, extraction {t4 - t3:.1f}, loop async {t5 - t4:.1f}, "
-        f"euroc runner {time.perf_counter() - t5:.1f}")
+        f"euroc runner {t6 - t5:.1f}, vi {t7 - t6:.1f}, vi async {time.perf_counter() - t7:.1f}")
 
     # the browse shape leads; the loop-association shapes follow under
     # "shapes". Paths are main-path runs; "relocalization_calls" is the part
@@ -1164,22 +1443,25 @@ def main():
         "name": "row_top2", "route": "cuda",
         "source": "hfnet_slam_torch/csrc/row_top2.cu",
         "replaces": "hfnet_slam_tpu/ops/pallas_match.py:52",
-        "launches": n_browse + n_loop + n_reloc + n_track + n_async + n_euroc,
+        "launches": n_browse + n_loop + n_reloc + n_track + n_async + n_euroc + n_vi + n_via,
         "launches_by_path": {"browse": n_browse, "loop": n_loop, "relocalization": n_reloc,
                              "relocalization_calls": n_reloc_calls,
                              "extraction_track": n_track, "extraction_matcher_call": n_call,
-                             "loop_async": n_async, "euroc_runner": n_euroc},
+                             "loop_async": n_async, "euroc_runner": n_euroc, "vi": n_vi,
+                             "vi_async": n_via},
         "launches_by_shape": {"browse": shapes_browse, "loop": shapes_loop,
                               "relocalization": shapes_reloc, "extraction_track": shapes_track,
                               "extraction_matcher_call": shapes_call,
-                              "loop_async": shapes_async, "euroc_runner": shapes_euroc},
+                              "loop_async": shapes_async, "euroc_runner": shapes_euroc,
+                              "vi": shapes_vi, "vi_async": shapes_via},
         "loop_async_launches_by_thread": threads_async,
+        "vi_async_launches_by_thread": threads_via,
         "max_abs_err": max_err,
         **timings[0],
         "bound_peak": "3xTF32 on the tensor cores, 495 TFLOP/s",
         "shapes": timings[1:],
         "recheck_on_path_inputs": [rech_loop, rech_reloc, rech_track, rech_call, rech_async,
-                                   rech_euroc],
+                                   rech_euroc, rech_via],
     }
     log(smi)
     log(json.dumps({"kernels": [kern]}))

@@ -8,13 +8,19 @@ map and the tracker's frame state.
     MapStore;
   * tracker_state_from_reference: the reference tracker's last-frame pose
     and observations, velocity, reference keyframe and local-map candidate
-    ids, as numpy, applied to a port Tracker.
+    ids, as numpy, applied to a port Tracker;
+  * imu_calib_from_reference / preintegrated_from_reference: the
+    reference's ImuCalib and Preintegrated records (geometry/imu.py), field
+    by field as numpy, -> the port's.
 None of them reads JAX arrays: the caller hands numpy (np.asarray) across.
 """
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
+from .geometry import imu
 from .models import hfnet
 from .slam.map import MapStore
 from .slam.tracking import OK, Frame, Tracker
@@ -74,3 +80,20 @@ def tracker_state_from_reference(tracker: Tracker, store: MapStore, *, last_R, l
     tracker._seen_big = store.big_change_idx
     tracker.state = OK
     return tracker
+
+
+def imu_calib_from_reference(calib) -> imu.ImuCalib:
+    """The reference's ImuCalib (noise densities, Tbc_R, Tbc_t) -> the
+    port's, keeping every value's float32 bits."""
+    f = {k: np.asarray(getattr(calib, k), np.float32) for k in imu.ImuCalib._fields}
+    return imu.ImuCalib(sigma_g=float(f["sigma_g"]), sigma_a=float(f["sigma_a"]),
+                        sigma_gw=float(f["sigma_gw"]), sigma_aw=float(f["sigma_aw"]),
+                        Tbc_R=f["Tbc_R"].copy(), Tbc_t=f["Tbc_t"].copy())
+
+
+def preintegrated_from_reference(pre, device="cpu") -> imu.Preintegrated:
+    """The reference's Preintegrated (single or batched) -> the port's, as
+    float32 tensors on `device`."""
+    return imu.Preintegrated(*(torch.tensor(np.asarray(getattr(pre, k)), dtype=torch.float32,
+                                            device=device)
+                               for k in imu.Preintegrated._fields))

@@ -74,6 +74,15 @@ def so3_left_jacobian(phi):
     return _eye_like(K) + B[..., None, None] * K + C[..., None, None] * (K @ K)
 
 
+def so3_right_jacobian(phi):
+    """Right Jacobian J_r(phi) = J_l(-phi) (IMU::RightJacobianSO3)."""
+    return so3_left_jacobian(-phi)
+
+
+def so3_right_jacobian_inv(phi):
+    return so3_left_jacobian_inv(-phi)
+
+
 def so3_left_jacobian_inv(phi):
     theta2 = torch.sum(phi * phi, -1)
     theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))

@@ -34,6 +34,16 @@ the EuRoC runner (examples/run_euroc.py) where no real sequence is at hand.
 The texture moves 4 px a frame and, from `shake[0]` on, every other frame
 sits `shake[1]` px further along it (the hand-held shake that sends tracking
 to the reference keyframe through row_top2).
+
+Visual-inertial (`vi_system`): bench.py's `_vi_metrics` scene, the browse
+cloud seen from an analytic arc (`vi_pose`, 0.4 rad/s on a 10 m circle,
+bobbing) with exact 200 Hz IMU from its finite differences (`synth_imu`:
+specific force and body rate, body = camera). VI_PRODUCTION is bench.py's
+scenario (100 frames at 10 Hz, gravity along -y, production widths);
+VI_SMALL is tests/test_vi_slam.py's (110 frames at 20 Hz, gravity along -z,
+512 slots, 64-d). `write_euroc_inertial_sequence` writes such a run as an
+EuRoC folder (cam0 PNGs of a synthetic texture, imu0/data.csv) with a
+settings file carrying the IMU keys.
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ from .slam.local_mapping import MapperConfig
 from .slam.loop_closing import LoopCloserConfig
 from .slam.system import SLAMSystem, SystemConfig
 from .slam.tracking import TrackerConfig
+from .slam.vi import VIConfig
 
 # tests/test_fused.py's small system: 512 slots, 64-d descriptors
 SMALL = dict(n_landmarks=1200, desc_dim=64, pad_to=512, max_per_frame=420,
@@ -304,3 +315,148 @@ def write_euroc_sequence(out_dir, n_frames, shake=SHAKE):
     with open(settings, "w") as f:
         f.write(EUROC_SETTINGS.format(**EUROC_CAM0, **EUROC_HFNET))
     return os.path.join(out_dir, "mav0"), settings, np.asarray(stamps)
+
+
+# ---------------------------------------------------------------------------
+# visual-inertial scenes
+# ---------------------------------------------------------------------------
+VI_IMU_DT = 0.005  # 200 Hz
+# tests/test_vi_slam.py's run: 512 slots, 64-d, 1400 landmarks, 20 Hz frames
+VI_SMALL = dict(n_landmarks=1400, desc_dim=64, pad_to=512, max_per_frame=480,
+                desc_noise=0.03, gdesc_dim=64, k_max=128, m_max=8192,
+                mapper=dict(ba_kf_cap=16, ba_mp_cap=2048, ba_edge_cap=8192, tri_neighbors=5),
+                frames=110, frame_dt=0.05, grav=(0.0, 0.0, -9.81))
+# bench.py's _vi_metrics: 1024 slots, 256-d local, 4096-d global, 1800
+# landmarks, 10 Hz frames, the inertial-window caps sized to production
+# shapes
+VI_PRODUCTION = dict(n_landmarks=1800, desc_dim=256, pad_to=1024, max_per_frame=900,
+                     desc_noise=0.015, gdesc_dim=4096, k_max=128, m_max=16384,
+                     mapper=dict(ba_kf_cap=16, ba_mp_cap=4096, ba_edge_cap=16384,
+                                 tri_neighbors=5, iba_mp_cap=4096, iba_edge_cap=16384),
+                     frames=100, frame_dt=0.1, grav=(0.0, -9.81, 0.0))
+# tests/test_vi_dropout.py's clock and gravity (bench.py's), at VI_SMALL's
+# widths: frames 60-69 of a 90-frame async run carry no features
+VI_DROPOUT = dict(frames=90, frame_dt=0.1, grav=(0.0, -9.81, 0.0), blackout=range(60, 70))
+
+
+def vi_pose(t, radius=10.0, rate=0.4, bob=0.4):
+    """(R_wc, c): camera-to-world rotation and centre at time t, float64."""
+    th = rate * t
+    c = np.array([radius * np.sin(th), bob * np.sin(1.4 * t), radius - radius * np.cos(th)])
+    fwd = np.array([0.0, 0.0, radius]) - c
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(np.array([0.0, 1.0, 0.0]), fwd)
+    right /= np.linalg.norm(right)
+    return np.stack([right, np.cross(fwd, right), fwd], 1), c
+
+
+def synth_imu(t0, t1, grav=VI_PRODUCTION["grav"]):
+    """Exact IMU rows [ax ay az wx wy wz dt] over (t0, t1] for body = camera:
+    specific force R^T (a_w - g) and body rate log(R^T R_next) / dt from
+    central differences of vi_pose, float32."""
+    from . import lie
+
+    h = VI_IMU_DT
+    n = int(round((t1 - t0) / h))
+    ts = t0 + h * np.arange(1, n + 1)
+    Rs, f_b, Rrel = [], [], []
+    for t in ts:
+        R, c = vi_pose(t)
+        _, c_p = vi_pose(t - h)
+        R_n, c_n = vi_pose(t + h)
+        f_b.append(R.T @ ((c_n - 2 * c + c_p) / (h * h) - np.asarray(grav)))
+        Rrel.append(R.T @ R_n)
+    if n == 0:
+        return np.zeros((0, 7), np.float32)
+    w_b = lie.so3_log(torch.tensor(np.stack(Rrel), dtype=torch.float64)).numpy() / h
+    return np.concatenate([np.stack(f_b), w_b, np.full((n, 1), h)], 1).astype(np.float32)
+
+
+def vi_frame_pose(t):
+    """World->camera (R, t) of the VI scene at time t, float32."""
+    R_wc, c = vi_pose(t)
+    R_cw = R_wc.T.astype(np.float32)
+    return R_cw, (-R_cw @ c).astype(np.float32)
+
+
+def vi_spec(size, async_mapping=False, vi_marg_prior=True):
+    """Keyword arguments of every object of the VI system at `size`
+    (VI_SMALL or VI_PRODUCTION): loop closing off, bench.py's VIConfig."""
+    s = size
+    return dict(
+        cam=dict(fx=450.0, fy=450.0, cx=320.0, cy=240.0, width=640, height=480),
+        world=dict(seed=5, n_landmarks=s["n_landmarks"], extent=16.0, center=(0, 0, 10.0),
+                   desc_dim=s["desc_dim"]),
+        ext=dict(pad_to=s["pad_to"], noise_px=0.3, desc_noise=s["desc_noise"],
+                 max_landmarks_per_frame=s["max_per_frame"], seed=7, gdesc_dim=s["gdesc_dim"]),
+        system=dict(k_max=s["k_max"], m_max=s["m_max"], n_slots=s["pad_to"],
+                    desc_dim=s["desc_dim"], gdesc_dim=s["gdesc_dim"], loop_closing=False,
+                    async_mapping=async_mapping),
+        tracker=dict(local_mp_cap=2048, min_init_med_parallax_deg=2.0,
+                     vi_marg_prior=vi_marg_prior),
+        mapper=dict(s["mapper"]),
+        vi=dict(t_init=1.5, t_viba1=3.5, t_viba2=8.0, min_kfs_for_init=6, meas_cap=512),
+        imu=dict(freq=1.0 / VI_IMU_DT))
+
+
+def vi_system(size, device=None, async_mapping=False, vi_marg_prior=True):
+    """(SLAMSystem, FakeExtractor) of vi_spec(size) on `device` (None means
+    CUDA), visual-inertial with the default IMU noise at 200 Hz."""
+    from .geometry import imu
+
+    sp = vi_spec(size, async_mapping, vi_marg_prior)
+    cam = cameras.pinhole(**sp["cam"], device=device)
+    ext = FakeExtractor(SyntheticWorld.cloud(**sp["world"]), cam, **sp["ext"], device=device)
+    cfg = SystemConfig(**sp["system"], tracker=TrackerConfig(**sp["tracker"]),
+                       mapper=MapperConfig(**sp["mapper"]), vi=VIConfig(**sp["vi"]))
+    return SLAMSystem(cam, ext, cfg, imu_calib=imu.default_calib(**sp["imu"]),
+                      device=device), ext
+
+
+def vi_blank_features(size):
+    """A frame the matcher can do nothing with (a visual blackout), as
+    numpy arrays in the Features layout."""
+    n, d, g = size["pad_to"], size["desc_dim"], size["gdesc_dim"]
+    from .models.extractor import Features
+
+    return Features(xy=torch.zeros((n, 2)), score=torch.zeros(n),
+                    octave=torch.zeros(n, dtype=torch.int32), desc=torch.zeros((n, d)),
+                    mask=torch.zeros(n, dtype=torch.bool),
+                    global_desc=torch.ones(g) / np.sqrt(g))
+
+
+EUROC_IMU_SETTINGS = EUROC_SETTINGS + """IMU.NoiseGyro: 1.7e-4
+IMU.NoiseAcc: 2.0e-3
+IMU.GyroWalk: 1.9e-5
+IMU.AccWalk: 3.0e-3
+IMU.Frequency: 200.0
+IMU.T_b_c1: !!opencv-matrix
+   rows: 4
+   cols: 4
+   dt: f
+   data: [1.0, 0.0, 0.0, 0.0,
+          0.0, 1.0, 0.0, 0.0,
+          0.0, 0.0, 1.0, 0.0,
+          0.0, 0.0, 0.0, 1.0]
+"""
+
+
+def write_euroc_inertial_sequence(out_dir, n_frames, shake=SHAKE):
+    """write_euroc_sequence's frames plus mav0/imu0/data.csv: 200 Hz rows
+    (timestamp [ns], w_RS_S xyz [rad/s], a_RS_S xyz [m/s^2]) from the VI
+    scene's exact IMU, spanning the frames, and a settings file with the
+    IMU keys (identity T_b_c1). Returns (mav0 path, settings path, frame
+    timestamps in seconds)."""
+    mav0, settings, stamps = write_euroc_sequence(out_dir, n_frames, shake=shake)
+    rows = synth_imu(-VI_IMU_DT, (n_frames - 1) * 0.05 + VI_IMU_DT)
+    lines = ["#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],w_RS_S_z [rad s^-1],"
+             "a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],a_RS_S_z [m s^-2]"]
+    for i, r in enumerate(rows):
+        ns = EUROC_T0_NS + i * int(VI_IMU_DT * 1e9)
+        lines.append(",".join([str(ns)] + [repr(float(r[c])) for c in (3, 4, 5, 0, 1, 2)]))
+    os.makedirs(os.path.join(mav0, "imu0"), exist_ok=True)
+    with open(os.path.join(mav0, "imu0", "data.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(settings, "w") as f:
+        f.write(EUROC_IMU_SETTINGS.format(**EUROC_CAM0, **EUROC_HFNET))
+    return mav0, settings, stamps

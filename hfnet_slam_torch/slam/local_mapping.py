@@ -8,9 +8,12 @@ block a batched kernel on the mapper's device (fused.triangulate_banked,
 fused.fuse_neighbors_banked, optim.ba) and the bookkeeping in numpy.
 
 Global BA (`run_global_ba`, loop closing's full-map solve) and its
-correction propagation run here too. Out of this slice: the distributed
-solvers (ROADMAP.md Queue 1 item 17), visual-inertial BA (item 15) and the
-stereo rig's right-camera edges (item 16).
+correction propagation run here too, and on a visual-inertial map the
+inertial BAs: once the IMU is initialized the window BA is
+`local_inertial_ba` (LocalInertialBA), and `full_inertial_ba`
+(FullInertialBA) serves the staged IMU initialization and inertial loop
+closing. Out of this slice: the distributed solvers (ROADMAP.md Queue 1
+item 17) and the stereo rig's right-camera edges (item 16).
 
 Lock discipline (the async pipeline, slam/pipeline.py): each stage gathers
 its inputs under `self.lock` as copies, runs its device work without it, and
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from .. import device as D
-from ..optim import ba
+from ..geometry import imu as IMU
+from ..optim import ba, vi_ba
 from . import fused
 from . import map as map_mod
 from .map import MapStore
@@ -80,6 +84,7 @@ class LocalMapper:
             raise NotImplementedError(
                 "stereo-rig right-camera BA edges are ROADMAP.md Queue 1 item 16")
         self.lock = NULL_LOCK
+        self.vim = None  # slam.vi.VIManager on a visual-inertial system
         self.abort_ba = False  # mbAbortBA: stop between LM rounds, keep results
         self.recent_points: list[tuple[int, int]] = []
         self.kf_count = 0
@@ -122,7 +127,12 @@ class LocalMapper:
                 self.store.apply_distinctive(g[0], best)
             self.store.update_point_stats(seen)
         if do_ba:
-            self.local_ba(k)
+            # an IMU-initialized map gets the visual-inertial window BA
+            # (LocalMapping.cc:168)
+            if self.vim is not None and self.store.imu_initialized:
+                self.local_inertial_ba(k, self.vim)
+            else:
+                self.local_ba(k)
         with self.lock:
             self.cull_keyframes(k)
 
@@ -544,6 +554,8 @@ class LocalMapper:
                 continue
             if self.kf_count - self.kf_born.get(j, 0) < cfg.kf_cull_min_age:
                 continue
+            if self.vim is not None and not self._inertial_cull_ok(j):
+                continue
             slots = np.nonzero(store.kf_obs[j] >= 0)[0]
             if len(slots) == 0:
                 continue
@@ -560,8 +572,285 @@ class LocalMapper:
             counts = np.zeros(len(mp), np.int64)
             np.add.at(counts, loc[mp_e[other]][finer], 1)
             if (counts >= cfg.kf_cull_min_obs).mean() > cfg.kf_cull_redundancy:
+                self._repair_imu_chain(j)
                 store.remove_keyframe(j)
                 self.stats["culled_kfs"] += 1
                 n_culled += 1
                 if n_culled >= cfg.kf_cull_max_per_round:
                     break
+
+    # ------------------------------------------------------------------
+    # visual-inertial BA (LocalInertialBA / FullInertialBA)
+    # ------------------------------------------------------------------
+    def local_inertial_ba(self, k: int, vim):
+        """Temporal-window VI-BA (LocalInertialBA): the last iba_window chain
+        keyframes optimize with their landmarks; the chain predecessor and
+        the other observers are fixed anchors (the most recent ones, up to
+        iba_kf_cap in all). Abortable like local_ba; completed rounds land."""
+        store = self.store
+        cfg = self.cfg
+        with self.lock:
+            window = [k]
+            while len(window) < cfg.iba_window:
+                p = int(store.kf_prev[window[-1]])
+                if p < 0 or not store.kf_valid[p]:
+                    break
+                window.append(p)
+            window = window[::-1]
+            if len(window) < 2:
+                return
+            mp_ids = store.points_seen_by(np.asarray(window))
+            if len(mp_ids) == 0:
+                return
+            kf_e, _, _ = store.observing_slots(mp_ids)
+            anchors = np.setdiff1d(np.unique(kf_e), window)
+            p0 = int(store.kf_prev[window[0]])
+            if p0 >= 0 and store.kf_valid[p0]:
+                anchors = np.union1d(anchors, [p0])
+            anchors = anchors[-max(cfg.iba_kf_cap - len(window), 1):]
+        self._run_inertial_ba(opt_ids=window, fixed_ids=[int(a) for a in anchors], vim=vim,
+                              mp_ids=mp_ids, rounds=cfg.iba_rounds, kf_cap=cfg.iba_kf_cap,
+                              should_abort=lambda: self.abort_ba, abort_mode="keep")
+
+    def full_inertial_ba(self, vim, prior_g=0.0, prior_a=0.0, rounds=None, should_abort=None):
+        """Whole-map VI-BA (FullInertialBA): every keyframe's 15-d state in
+        one problem, for the staged IMU initialization and inertial loop
+        closing. Up to fiba_max_joint keyframes the solve is joint, with
+        capacities sized to the map (powers of two). Past that, with
+        fiba_dist=False, overlapping-chunk Gauss-Seidel sweeps of fiba_kf_cap
+        keyframes run; with fiba_dist=True the reference hands the joint
+        problem to its distributed solver (parallel/dist_vi_ba, ROADMAP.md
+        Queue 1 item 17), and on one card this runs the same joint solve,
+        sized to the problem. Keyframes and points outside the solve follow
+        their anchors (propagate_ba_correction).
+
+        should_abort: polled between chunks and LM rounds (mbStopGBA); on
+        True the rest is skipped and nothing more is written back."""
+        from ..utils.log import warn
+
+        store = self.store
+        cfg = self.cfg
+        with self.lock:
+            kf_ids = store.valid_kf_ids()
+            kf_ids = [int(i) for i in kf_ids[np.argsort(store.kf_timestamp[kf_ids])]]
+            if len(kf_ids) < 3:
+                return
+            pre_R = store.kf_R.copy()
+            pre_t = store.kf_t.copy()
+            pre_uid = store.kf_uid.copy()
+            n_mp = int(store.mp_valid.sum())
+            n_obs = int((store.kf_obs[kf_ids] >= 0).sum())
+        rounds = rounds or cfg.fiba_rounds
+        opt_all, mp_all = [], []
+        n_chunks = 0
+        if len(kf_ids) <= cfg.fiba_max_joint or cfg.fiba_dist:
+            if len(kf_ids) > cfg.fiba_max_joint:
+                warn(f"full_inertial_ba: {len(kf_ids)} KFs > fiba_max_joint="
+                     f"{cfg.fiba_max_joint}; one joint solve sized to the map")
+            Kp = 1 << max(3, int(len(kf_ids) - 1).bit_length())
+            Mp = 1 << max(6, int(max(n_mp, 1) - 1).bit_length())
+            Ep = 1 << max(8, int(max(n_obs, 1) - 1).bit_length())
+            res = self._run_inertial_ba(opt_ids=kf_ids, fixed_ids=[], vim=vim, mp_ids=None,
+                                        rounds=rounds, kf_cap=Kp, mp_cap=Mp, edge_cap=Ep,
+                                        prior_g=prior_g, prior_a=prior_a,
+                                        should_abort=should_abort)
+            if res is None:
+                return
+            if res:
+                opt_all.extend(int(i) for i in res["kf_ids"])
+                mp_all.extend(int(i) for i in res["mp_ids"])
+        else:
+            W = cfg.fiba_kf_cap
+            overlap = min(8, max(2, W // 4))
+            warn(f"full_inertial_ba: {len(kf_ids)} KFs > fiba_max_joint={cfg.fiba_max_joint}; "
+                 f"chunked Gauss-Seidel sweep (window {W}, overlap {overlap})")
+            for sweep in range(2):
+                start = 0
+                while start < len(kf_ids):
+                    if should_abort is not None and should_abort():
+                        return
+                    if start == 0:
+                        opt, anchors = kf_ids[:W], []
+                    else:
+                        anchors = kf_ids[start - overlap:start]
+                        opt = kf_ids[start:start + (W - overlap)]
+                    if not opt:
+                        break
+                    first = sweep == 0 and start == 0
+                    res = self._run_inertial_ba(
+                        opt_ids=opt, fixed_ids=anchors, vim=vim, mp_ids=None, rounds=rounds,
+                        kf_cap=W, prior_g=prior_g if first else 0.0,
+                        prior_a=prior_a if first else 0.0, should_abort=should_abort)
+                    if res is None:
+                        return
+                    if res:
+                        opt_all.extend(int(i) for i in res["kf_ids"])
+                        mp_all.extend(int(i) for i in res["mp_ids"])
+                    start += len(opt) if start == 0 else (W - overlap)
+                    n_chunks += 1
+            self.stats["fiba_chunks"] = self.stats.get("fiba_chunks", 0) + n_chunks
+        if not opt_all:
+            return
+        with self.lock:
+            if len(pre_uid) < store.k_max:
+                n_old = len(pre_uid)
+                pre_R = np.concatenate([pre_R, store.kf_R[n_old:]], 0)
+                pre_t = np.concatenate([pre_t, store.kf_t[n_old:]], 0)
+                pre_uid = np.concatenate([pre_uid, np.full(store.k_max - n_old, -1, np.int64)])
+            born = store.kf_valid & (store.kf_uid != pre_uid)
+            pre_R[born] = store.kf_R[born]
+            pre_t[born] = store.kf_t[born]
+            self.propagate_ba_correction(np.unique(opt_all), np.unique(mp_all), pre_R, pre_t)
+            store.bump_change()
+
+    def _run_inertial_ba(self, opt_ids, fixed_ids, vim, mp_ids, rounds, kf_cap, prior_g=0.0,
+                         prior_a=0.0, should_abort=None, mp_cap=None, edge_cap=None,
+                         abort_mode="discard"):
+        """Build a VIBAProblem under the lock, solve it without the lock,
+        write the body states and landmarks back under it. Returns the
+        solved id sets, {} when there was nothing to solve, or None when the
+        solve went stale or was aborted and was discarded."""
+        store = self.store
+        with self.lock:
+            big0 = store.big_change_idx
+            built = self._build_inertial_problem(opt_ids, fixed_ids, vim, mp_ids, kf_cap,
+                                                 prior_g, prior_a, mp_cap=mp_cap,
+                                                 edge_cap=edge_cap)
+        if built is None:
+            return {}
+        prob, kf_ids, mp_ids, fixed, fix_pose_only, kf_e, slot_e, n_e = built
+        out = vi_ba.vi_bundle_adjust(self.cam.kind, self.cam.params, prob, rounds=rounds,
+                                     should_abort=should_abort)
+        out = {k: getattr(out, k).cpu().numpy()
+               for k in ("R_wb", "p_wb", "v", "bg", "ba", "points", "valid")}
+        with self.lock:
+            if abort_mode == "discard" and should_abort is not None and should_abort():
+                return None
+            if store.big_change_idx != big0:
+                return None
+            return self._write_back_inertial(out, kf_ids, mp_ids, fixed, fix_pose_only, vim,
+                                             kf_e, slot_e, n_e)
+
+    def _build_inertial_problem(self, opt_ids, fixed_ids, vim, mp_ids, kf_cap, prior_g,
+                                prior_a, mp_cap=None, edge_cap=None):
+        store = self.store
+        cfg = self.cfg
+        K = kf_cap
+        M = mp_cap or cfg.iba_mp_cap
+        E = edge_cap or cfg.iba_edge_cap
+        fixed_set = set(int(i) for i in fixed_ids)
+        all_ids = sorted(set(int(i) for i in opt_ids) | fixed_set)
+        kf_ids, mp_ids, kf_e, slot_e, mp_e = self._gather_edges(all_ids, mp_ids, K, M, E)
+        if len(kf_e) == 0:
+            return None
+        nk = len(kf_ids)
+        kf_loc = {int(kf): i for i, kf in enumerate(kf_ids)}
+        R_wb = np.tile(np.eye(3, dtype=np.float32), (K, 1, 1))
+        p_wb = np.zeros((K, 3), np.float32)
+        for i, kf in enumerate(kf_ids):
+            R_wb[i], p_wb[i] = vim.cam_to_body(store.kf_R[kf], store.kf_t[kf])
+        v = np.zeros((K, 3), np.float32)
+        bg = np.zeros((K, 3), np.float32)
+        ba_ = np.zeros((K, 3), np.float32)
+        v[:nk] = store.kf_vel[kf_ids]
+        bg[:nk] = store.kf_bg[kf_ids]
+        ba_[:nk] = store.kf_ba[kf_ids]
+        fixed = np.ones(K, bool)
+        fixed[:nk] = [int(i) in fixed_set for i in kf_ids]
+        # gauge: with nothing fixed (FullInertialBA) the oldest pose is held,
+        # its velocity and biases stay in the chain
+        fix_pose_only = np.zeros(K, bool)
+        if not fixed[:nk].any():
+            fix_pose_only[int(np.argmin(store.kf_timestamp[kf_ids]))] = True
+        points = np.zeros((M, 3), np.float32)
+        points[: len(mp_ids)] = store.mp_pos[mp_ids]
+        kf_idx, pt_idx, uv, inv_s2, valid = self._edge_arrays(kf_ids, mp_ids, kf_e, slot_e,
+                                                             mp_e, E)
+        n_e = len(kf_e)
+        # inertial links: consecutive chain pairs with both ends in the set
+        li = np.zeros(K, np.int64)
+        lj = np.zeros(K, np.int64)
+        lvalid = np.zeros(K, bool)
+        pres = []
+        for kf in kf_ids:
+            p = int(store.kf_prev[kf])
+            if p in kf_loc and int(kf) in vim.kf_pre and len(pres) < K:
+                li[len(pres)] = kf_loc[p]
+                lj[len(pres)] = kf_loc[int(kf)]
+                lvalid[len(pres)] = True
+                pres.append(vim.kf_pre[int(kf)].to(self.device))
+        if len(pres) < 2:
+            return None  # no usable chain; the visual BA covers it
+        empty = IMU.empty_preintegrated(device=self.device)
+        pres.extend([empty] * (K - len(pres)))
+        z = np.zeros(E, np.float32)
+        prob = vi_ba.VIBAProblem(
+            R_wb=self._t(R_wb), p_wb=self._t(p_wb), v=self._t(v), bg=self._t(bg),
+            ba=self._t(ba_), fixed=self._t(fixed, torch.bool),
+            fix_pose_only=self._t(fix_pose_only, torch.bool), points=self._t(points),
+            Tbc_R=self._t(vim.calib.Tbc_R), Tbc_t=self._t(vim.calib.Tbc_t),
+            kf_idx=self._t(kf_idx, torch.int64), pt_idx=self._t(pt_idx, torch.int64),
+            uv=self._t(uv), inv_sigma2=self._t(inv_s2), valid=self._t(valid, torch.bool),
+            z_meas=self._t(z), wz=self._t(z), li=self._t(li, torch.int64),
+            lj=self._t(lj, torch.int64), pre=IMU.stack(pres),
+            lvalid=self._t(lvalid, torch.bool), prior_g=self._t(float(prior_g)),
+            prior_a=self._t(float(prior_a)))
+        return prob, kf_ids, mp_ids, fixed, fix_pose_only, kf_e, slot_e, n_e
+
+    def _write_back_inertial(self, out, kf_ids, mp_ids, fixed, fix_pose_only, vim, kf_e,
+                             slot_e, n_e):
+        store = self.store
+        nk = len(kf_ids)
+        free = ~fixed[:nk]
+        for i, kf in enumerate(kf_ids):
+            if not free[i]:
+                continue
+            if not fix_pose_only[i]:
+                store.kf_R[kf], store.kf_t[kf] = vim.body_to_cam(out["R_wb"][i], out["p_wb"][i])
+            store.kf_vel[kf] = out["v"][i]
+            store.kf_bg[kf] = out["bg"][i]
+            store.kf_ba[kf] = out["ba"][i]
+        store.mp_pos[mp_ids] = out["points"][: len(mp_ids)]
+        store.mark_points_dirty(mp_ids)
+        self._detach_outliers(out["valid"][:n_e], kf_e, slot_e, mp_ids)
+        vim.reintegrate_chain()
+        # an incremental change: big_change_idx is for whole-map moves
+        store.bump_change(dirty_points=False)
+        return {"kf_ids": kf_ids, "mp_ids": mp_ids}
+
+    def _inertial_cull_ok(self, j: int) -> bool:
+        """Inertial culling gates (LocalMapping.cc:1195-1229): keep the map
+        above 21 keyframes, and splice a chain link out only when the span it
+        leaves is short (< 3 s once the IMU is initialized, else < 0.5 s)."""
+        store = self.store
+        if store.kf_valid.sum() <= 21:
+            return False
+        prev = int(store.kf_prev[j])
+        succ = [s for s in np.nonzero(store.kf_prev == j)[0] if store.kf_valid[s]]
+        if prev < 0 or not store.kf_valid[prev] or not succ:
+            return False
+        t = float(store.kf_timestamp[succ[0]] - store.kf_timestamp[prev])
+        return (store.imu_initialized and t < 3.0) or (t < 0.5)
+
+    def _repair_imu_chain(self, j: int):
+        """Splice keyframe j out of the IMU chain before it is culled: its
+        successor's preintegration absorbs j's (MergePrevious)."""
+        if self.vim is None:
+            return
+        store = self.store
+        vim = self.vim
+        prev = int(store.kf_prev[j])
+        for s in np.nonzero(store.kf_prev == j)[0]:
+            s = int(s)
+            store.kf_prev[s] = prev
+            if s in vim.kf_pre and j in vim.kf_pre:
+                vim.kf_pre[s] = IMU.compose(vim.kf_pre[j], vim.kf_pre[s])
+                if s in vim.kf_meas and j in vim.kf_meas:
+                    vim.kf_meas[s] = np.concatenate([vim.kf_meas[j], vim.kf_meas[s]], axis=0)
+                else:
+                    vim.kf_meas.pop(s, None)
+            else:
+                vim.kf_pre.pop(s, None)
+                vim.kf_meas.pop(s, None)
+        vim.kf_pre.pop(j, None)
+        vim.kf_meas.pop(j, None)

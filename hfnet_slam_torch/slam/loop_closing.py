@@ -29,9 +29,9 @@ checked again under the lock before anything is written. A correction pauses
 the mapping worker, holds the lock for the window propagation and the fuse's
 host work (the fuse kernel runs without it), solves the essential graph off
 the lock on a snapshot whose write-back is discarded when the map moved, and
-hands global BA to the detached GBA worker. The inertial gravity gate and
-4-DoF/inertial corrections are ROADMAP.md Queue 1 item 15 (reached only on an
-IMU-initialized map, which raises).
+hands global BA to the detached GBA worker. On an IMU-initialized map a hit
+passes the gravity gate first, the essential graph is the 4-DoF one and the
+global solve is FullInertialBA (LocalMapper.full_inertial_ba).
 """
 from __future__ import annotations
 
@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import device as D
+from .. import lie
 from ..optim import pnp
 from ..optim import pose_graph as pg
 from ..optim import sim3 as sim3_mod
@@ -90,6 +91,11 @@ class LoopCloser:
         # global BA inline) and the mapping worker a correction pauses
         self.gba_worker = None
         self.mapping_worker = None
+        # on an IMU-initialized map: hits the gravity gate refused, the last
+        # essential graph's mode ("sim3" or "4dof"), FullInertialBA requests
+        self.gravity_rejected = 0
+        self.last_pg_mode = None
+        self.inertial_gba_requests = 0
         self.consistent_hits = 0
         self.last_candidate = -1
         self._pending = None  # dict(cand, R_cw, t_cw, s_cw, last_kf, loop_mps, miss, uids)
@@ -161,9 +167,15 @@ class LoopCloser:
         return self._try_merge(k)
 
     def _confirm_and_correct(self, k, cand, hit):
-        """The correction parameters (cand, R_cm, t_cm, s_cm, loop_mps)."""
+        """The correction parameters (cand, R_cm, t_cm, s_cm, loop_mps), or
+        False when an IMU-initialized map's gravity gate refuses the hit
+        (BAD LOOP, LoopClosing.cc:262)."""
         if self.store.imu_initialized:
-            self._gravity_gate(k, cand, *hit)
+            hit = self._gravity_gate(k, cand, *hit)
+            if hit is None:
+                self.gravity_rejected += 1
+                self._reset_pending()
+                return False
         self.stats["detected"] += 1
         self._reset_pending()
         return (cand,) + tuple(hit)
@@ -288,9 +300,31 @@ class LoopCloser:
         return R_cm, t_cm, s_cm, pend["loop_mps"]
 
     def _gravity_gate(self, k, cand, R_cm, t_cm, s_cm, loop_mps):
-        raise NotImplementedError(
-            "loop closing on an IMU-initialized map (the gravity gate and the "
-            "4-DoF correction) is ROADMAP.md Queue 1 item 15")
+        """An inertial loop must not bend the horizon: the world-frame
+        correction S_ww = T_kw^-1 S_cw must be near pure yaw (|roll|,
+        |pitch| < 0.016 rad, their sum < 0.024, |yaw| < 0.349;
+        LoopClosing.cc:242-264). After VIBA2 roll and pitch are zeroed and
+        the scale forced to 1. Returns the (possibly corrected) hit, or None."""
+        store = self.store
+        Rk, tk = store.kf_R[k], store.kf_t[k]
+        Rc, tc = store.kf_R[cand], store.kf_t[cand]
+        R_cw = R_cm @ Rc
+        t_cw = s_cm * (R_cm @ tc) + t_cm
+        R_ww = Rk.T @ R_cw
+        t_ww = Rk.T @ (t_cw - tk)
+        phi = lie.so3_log(torch.as_tensor(np.asarray(R_ww, np.float32))).numpy()
+        if not (abs(phi[0]) < 0.016 and abs(phi[1]) < 0.016
+                and abs(phi[0]) + abs(phi[1]) < 0.024 and abs(phi[2]) < 0.349):
+            return None
+        if store.viba2:
+            phi = np.array([0.0, 0.0, phi[2]], np.float32)
+            R_ww = lie.so3_exp(torch.as_tensor(phi)).numpy()
+            R_cw = Rk @ R_ww
+            t_cw = Rk @ t_ww + tk
+            R_cm = R_cw @ Rc.T
+            t_cm = t_cw - R_cm @ tc
+            s_cm = 1.0
+        return R_cm, t_cm, s_cm, loop_mps
 
     # ------------------------------------------------------------------
     # cross-map merge detection
@@ -441,8 +475,11 @@ class LoopCloser:
                 prob, meta = built
                 # the solve runs off the lock on the snapshot (tracking goes
                 # on; mapping is paused, so only born keyframes can appear)
+                # an IMU-initialized map keeps gravity: the 4-DoF graph
+                mode = "4dof" if store.imu_initialized else "sim3"
+                self.last_pg_mode = mode
                 out, _ = pg.optimize_pose_graph(prob, n_iters=cfg.pg_iters,
-                                                fix_scale=cfg.fix_scale, mode="sim3")
+                                                fix_scale=cfg.fix_scale, mode=mode)
                 out = (out.R.cpu().numpy(), out.t.cpu().numpy(), out.s.cpu().numpy())
                 with self.lock:
                     if store.big_change_idx == big0:
@@ -458,8 +495,17 @@ class LoopCloser:
                 mw.resume()
 
         # global BA: detached on the GBA worker in async mode (a newer loop
-        # aborts a solve in flight), inline otherwise
-        if cfg.run_gba and self.mapper is not None:
+        # aborts a solve in flight), inline otherwise; an inertial map gets
+        # FullInertialBA (LoopClosing.cc:2408)
+        if cfg.run_gba and self.mapper is not None and store.imu_initialized \
+                and self.mapper.vim is not None:
+            rounds = ((3, True), (4, False))
+            if self.gba_worker is not None:
+                self.gba_worker.request("inertial", rounds=rounds)
+            else:
+                self.mapper.full_inertial_ba(self.mapper.vim, rounds=rounds)
+            self.inertial_gba_requests += 1
+        elif cfg.run_gba and self.mapper is not None:
             kwargs = dict(fixed_ids=[int(cand)], rounds=cfg.gba_rounds, kf_cap=cfg.gba_kf_cap,
                           mp_cap=cfg.gba_mp_cap, edge_cap=cfg.gba_edge_cap)
             if self.gba_worker is not None:

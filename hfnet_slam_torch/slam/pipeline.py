@@ -126,6 +126,13 @@ class MappingWorker:
                         if sys_.loop_closer.process_keyframe(k):
                             with self.map_lock:
                                 sys_.tracker.velocity = None
+                    vi = getattr(sys_, "vi", None)
+                    if vi is not None:
+                        # the staged IMU initialization runs on this worker
+                        # under the map lock: its rescale is a whole-map move
+                        # the tracker must not interleave with
+                        with self.map_lock:
+                            vi.maybe_initialize(float(store.kf_timestamp[k]))
                 self.processed += 1
             except Exception as e:  # raised again by drain()
                 self.exc = e
@@ -224,14 +231,11 @@ class GBAWorker:
         self._thread.start()
 
     def request(self, kind: str, **kw):
-        """Queue a global solve ('visual': run_global_ba keyword arguments),
-        aborting the one in flight and superseding a queued one
-        (mbStopGBA = true). 'inertial' (FullInertialBA) is ROADMAP.md Queue 1
-        item 15 and raises."""
-        if kind == "inertial":
-            raise NotImplementedError(
-                "the detached inertial global BA (FullInertialBA) is ROADMAP.md Queue 1 item 15")
-        if kind != "visual":
+        """Queue a global solve ('visual': run_global_ba keyword arguments;
+        'inertial': full_inertial_ba's, FullInertialBA on the mapper's
+        VIManager), aborting the one in flight and superseding a queued one
+        (mbStopGBA = true)."""
+        if kind not in ("visual", "inertial"):
             raise ValueError(f"GBAWorker.request: unknown kind {kind!r}")
         self.abort_inflight()
         stop_seen = False
@@ -267,11 +271,14 @@ class GBAWorker:
             if item is None:
                 self.q.task_done()
                 return
-            _, kw = item
+            kind, kw = item
             self._abort.clear()
             aborted = self._abort.is_set
             try:
-                self.mapper.run_global_ba(should_abort=aborted, **kw)
+                if kind == "inertial":
+                    self.mapper.full_inertial_ba(self.mapper.vim, should_abort=aborted, **kw)
+                else:
+                    self.mapper.run_global_ba(should_abort=aborted, **kw)
                 if aborted():
                     self.aborted += 1
                 else:

@@ -11,9 +11,14 @@ map lock; `finish()` drains them and `shutdown()` stops them. The trajectory
 savers write TUM, EuRoC or KITTI lines; `save_map` / `load_map` and
 `save_atlas` / `load_atlas` use the reference's formats.
 
-`SLAMSystem(cam, extractor, cfg, device=None)` runs on CUDA (None) unless the
-caller passes device="cpu"; a CUDA request without a card raises. Features
-it receives are moved to that device. Configurations outside this slice
+`SLAMSystem(cam, extractor, cfg, imu_calib=None, device=None)` runs on CUDA
+(None) unless the caller passes device="cpu"; a CUDA request without a card
+raises. Features it receives are moved to that device. With an `imu_calib`
+(geometry/imu.ImuCalib) the system is visual-inertial (IMU_MONOCULAR):
+`track_monocular_inertial(image, t, imu)` and `track_features(feats, t,
+imu=rows)` take the (N,7) IMU rows covering (t_prev, t], a slam.vi.VIManager
+runs the staged IMU initialization, and the mapper and loop closer switch
+to their inertial solves once it has. Configurations outside this slice
 raise NotImplementedError naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -30,12 +35,12 @@ from .local_mapping import LocalMapper, MapperConfig
 from .loop_closing import LoopCloser, LoopCloserConfig
 from .map import MapStore
 from .tracking import LOST, Tracker, TrackerConfig
+from .vi import VIConfig, VIManager
 
 
 @dataclasses.dataclass
 class SystemConfig:
-    """The reference's SystemConfig fields. `vi` stays None until the
-    visual-inertial slice brings its config."""
+    """The reference's SystemConfig fields."""
 
     k_max: int = 256
     m_max: int = 32768
@@ -52,27 +57,26 @@ class SystemConfig:
     tracker: TrackerConfig = dataclasses.field(default_factory=TrackerConfig)
     mapper: MapperConfig = dataclasses.field(default_factory=MapperConfig)
     loop: LoopCloserConfig = dataclasses.field(default_factory=LoopCloserConfig)
-    vi: object = None
+    vi: VIConfig = dataclasses.field(default_factory=VIConfig)
 
 
-def _check_slice(cfg: SystemConfig, imu_calib):
-    if imu_calib is not None:
-        raise NotImplementedError("visual-inertial SLAM is ROADMAP.md Queue 1 item 15")
+def _check_slice(cfg: SystemConfig):
     if cfg.baseline > 0 or cfg.cam_right is not None or cfg.T_lr is not None:
         raise NotImplementedError("stereo / RGB-D SLAM is ROADMAP.md Queue 1 item 16")
 
 
 class SLAMSystem:
-    """Monocular SLAM. `extractor(image) -> Features` is injected: the HF-Net
-    pyramid extractor of models/extractor.py (`track_monocular` takes
-    images), or the synthetic one of models/fake.py (whose "image" is the
-    ground-truth pose)."""
+    """Monocular and monocular-inertial SLAM. `extractor(image) -> Features`
+    is injected: the HF-Net pyramid extractor of models/extractor.py
+    (`track_monocular` takes images), or the synthetic one of models/fake.py
+    (whose "image" is the ground-truth pose)."""
 
     def __init__(self, cam: cameras.Camera, extractor, cfg: SystemConfig = None,
                  imu_calib=None, device=None):
         self.cfg = cfg or SystemConfig()
-        _check_slice(self.cfg, imu_calib)
+        _check_slice(self.cfg)
         self.device = D.resolve(device)
+        self.imu_calib = imu_calib
         D.full_fp32()
         self.cam = cam.to(self.device)
         self.extractor = extractor
@@ -84,8 +88,15 @@ class SLAMSystem:
         self.mapper = LocalMapper(self.cam, self.store, c.mapper, device=self.device)
         self.loop_closer = (LoopCloser(self.cam, self.store, c.loop, mapper=self.mapper,
                                        device=self.device) if c.loop_closing else None)
+        self.vi = (VIManager(imu_calib, self.store, c.vi, device=self.device)
+                   if imu_calib is not None else None)
+        if self.vi is not None:
+            # the mapper's window BA goes inertial once the IMU is initialized,
+            # and the staged init runs FullInertialBA through the mapper
+            self.mapper.vim = self.vi
+            self.vi.mapper = self.mapper
         self.tracker = Tracker(self.cam, self.store, c.tracker, mapper=self.mapper,
-                               loop_closer=self.loop_closer, device=self.device)
+                               loop_closer=self.loop_closer, vi=self.vi, device=self.device)
         if self.loop_closer is not None:
             self.loop_closer.system = self  # enables cross-map merges
         self._traj_mark = 0
@@ -123,21 +134,24 @@ class SLAMSystem:
         raise NotImplementedError("RGB-D SLAM is ROADMAP.md Queue 1 item 16")
 
     def track_monocular_inertial(self, image, timestamp: float, imu):
-        raise NotImplementedError("visual-inertial SLAM is ROADMAP.md Queue 1 item 15")
+        """Mono-inertial frame: imu = (N,7) [ax ay az wx wy wz dt] rows
+        covering (t_prev, t]."""
+        return self.track_features(self.extractor(image), timestamp, imu=imu)
 
     def track_stereo_inertial(self, image_left, image_right, timestamp: float, imu):
-        raise NotImplementedError("visual-inertial SLAM is ROADMAP.md Queue 1 item 15")
+        raise NotImplementedError("stereo-inertial SLAM is ROADMAP.md Queue 1 item 16")
 
     def install_mesh(self, mesh):
         raise NotImplementedError(
             "multi-GPU global BA and retrieval are ROADMAP.md Queue 1 item 17")
 
-    def track_features(self, feats, timestamp: float):
-        """Feed pre-extracted features (testing / offline pipelines)."""
+    def track_features(self, feats, timestamp: float, imu=None):
+        """Feed pre-extracted features (testing / offline pipelines), with the
+        frame's IMU rows on a visual-inertial system."""
         feats = feats.to(self.device)
         if self.cam.dist is not None:
             feats = feats._replace(xy=self.cam.undistort(feats.xy))
-        out = self.tracker.track(feats, timestamp)
+        out = self.tracker.track(feats, timestamp, imu=imu)
         if out[0] == LOST:
             self._handle_lost()
         return out
@@ -189,15 +203,32 @@ class SLAMSystem:
         if self.loop_closer is not None:
             self.loop_closer.store = store
             self.loop_closer._reset_pending()
+        if self.vi is not None:
+            self.vi.store = store
 
     # ------------------------------------------------------------------
     def execute_merge(self, target_idx: int, k: int, cand: int, R_cm, t_cm, s_cm, win_mps):
         """Weld the active map into atlas map `target_idx` through the
-        matched Sim3 (LoopClosing::MergeLocal). Returns keyframe k's id in
-        the merged map, or False."""
+        matched Sim3 (LoopClosing::MergeLocal; between two IMU-initialized
+        maps the inertial MergeLocal2 gates: scale within 0.90-1.1, and after
+        VIBA1 a yaw-only weld at unit scale). Returns keyframe k's id in the
+        merged map, or False."""
         active = self.store
         target = self.atlas.maps[target_idx]
         G = merging.compute_world_transform(active, target, k, cand, R_cm, t_cm, s_cm)
+        if active.imu_initialized and target.imu_initialized:
+            Rg, tg, sg = G
+            if not (0.90 <= sg <= 1.1):
+                return False  # "scale bad estimated. Abort merging"
+            if active.viba1:
+                import torch
+
+                from .. import lie
+
+                phi = lie.so3_log(torch.as_tensor(np.asarray(Rg, np.float32))).numpy()
+                phi[0] = 0.0
+                phi[1] = 0.0
+                G = (lie.so3_exp(torch.as_tensor(phi)).numpy(), tg, 1.0)
         kf_remap, _ = merging.merge_into(active, target, G)
         if k not in kf_remap:
             return False
@@ -217,6 +248,16 @@ class SLAMSystem:
             tr.last_frame.t = target.kf_t[k_new].copy()
             tr.last_frame.obs = target.kf_obs[k_new].copy()
         target.bump_change()
+        tr._vi_state = None
+        if self.vi is not None:
+            # the chain preintegrations follow their keyframes (body-frame
+            # quantities, invariant to the world transform)
+            tr._last_kf = k_new
+            self.vi.store = target
+            self.vi.kf_pre = {kf_remap[a]: p for a, p in self.vi.kf_pre.items() if a in kf_remap}
+            self.vi.kf_meas = {kf_remap[a]: m for a, m in self.vi.kf_meas.items()
+                               if a in kf_remap}
+            tr._imu_since_kf = []
         # the trajectory recorded in the absorbed map moves into the target
         # frame; reference-keyframe links follow the transplanted keyframes
         # (relative translations rescale by 1/s)
@@ -249,6 +290,10 @@ class SLAMSystem:
                     window = [k_new] + [int(j) for j in target.covisible_kfs(
                         k_new, n=8, min_weight=1)]
                     self.loop_closer._fuse_loop_points(window, np.asarray(win_mps))
+        if target.imu_initialized and self.mapper.vim is not None:
+            # MergeInertialBA: the inertial window BA around the weld
+            self.mapper.local_inertial_ba(k_new, self.mapper.vim)
+            return
         self.mapper.local_ba(k_new)
         lc = self.cfg.loop
         self.mapper.run_global_ba(fixed_ids=[int(target.valid_kf_ids()[0])],

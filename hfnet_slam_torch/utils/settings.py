@@ -313,8 +313,18 @@ class Settings:
             "the second camera of a stereo rig is ROADMAP.md Queue 1 item 16")
 
     def make_imu_calib(self):
-        raise NotImplementedError(
-            "the IMU calibration (visual-inertial SLAM) is ROADMAP.md Queue 1 item 15")
+        """The IMU calibration of the IMU.* keys: noise densities in discrete
+        form (multiplied or divided by sqrt(IMU.Frequency)) and IMU.T_b_c1,
+        the camera-to-body extrinsic."""
+        from ..geometry import imu
+
+        sf = float(np.sqrt(self.imu_frequency))
+        Tbc = np.asarray(self.T_b_c if self.T_b_c is not None else np.eye(4), np.float32)
+        return imu.ImuCalib(sigma_g=float(np.float32(self.noise_gyro * sf)),
+                            sigma_a=float(np.float32(self.noise_acc * sf)),
+                            sigma_gw=float(np.float32(self.gyro_walk / sf)),
+                            sigma_aw=float(np.float32(self.acc_walk / sf)),
+                            Tbc_R=Tbc[:3, :3].copy(), Tbc_t=Tbc[:3, 3].copy())
 
     def make_system_config(self, **overrides):
         """The SystemConfig the settings describe, with `overrides` set on

@@ -6,8 +6,9 @@ Both packages are built from the one scene definition in
 import numpy as np
 
 from hfnet_slam_torch.scenes import (BLACKOUT, LOOP_PRODUCTION, LOOP_SMALL, PRODUCTION,  # noqa: F401
-                                     SMALL, browse_pose, browse_spec, loop_spec, reloc_spec,
-                                     ring_pose, ring_world)
+                                     SMALL, VI_DROPOUT, VI_SMALL, browse_pose, browse_spec,
+                                     loop_spec, reloc_spec, ring_pose, ring_world, synth_imu,
+                                     vi_blank_features, vi_frame_pose, vi_pose, vi_spec)
 
 
 def T(x, dtype=None):
@@ -118,3 +119,57 @@ def run_loop(sys_, ext, size, n=None, lockstep=False):
     post = float(ate.ate_rmse(np.asarray(rc), np.asarray(rg), with_scale=True)) \
         if len(rc) > 20 else float("nan")
     return pre, post, len(live)
+
+
+def build_vi(pkg, size=VI_SMALL, device=None, async_mapping=False, vi_marg_prior=True):
+    """(system, extractor) of the visual-inertial scene of package `pkg` at
+    `size`, from the one definition scenes.vi_spec."""
+    if pkg == "torch":
+        from hfnet_slam_torch.scenes import vi_system
+        return vi_system(size, device, async_mapping=async_mapping, vi_marg_prior=vi_marg_prior)
+    from hfnet_slam_tpu.geometry import cameras
+    from hfnet_slam_tpu.geometry import imu as IMU
+    from hfnet_slam_tpu.models.fake import FakeExtractor, SyntheticWorld
+    from hfnet_slam_tpu.slam.local_mapping import MapperConfig
+    from hfnet_slam_tpu.slam.system import SLAMSystem, SystemConfig
+    from hfnet_slam_tpu.slam.tracking import TrackerConfig
+    from hfnet_slam_tpu.slam.vi import VIConfig
+    sp = vi_spec(size, async_mapping, vi_marg_prior)
+    cam = cameras.pinhole(**sp["cam"])
+    ext = FakeExtractor(SyntheticWorld.cloud(**sp["world"]), cam, **sp["ext"])
+    cfg = SystemConfig(**sp["system"], tracker=TrackerConfig(**sp["tracker"]),
+                       mapper=MapperConfig(**sp["mapper"]), vi=VIConfig(**sp["vi"]))
+    return SLAMSystem(cam, ext, cfg, imu_calib=IMU.default_calib(**sp["imu"])), ext
+
+
+def drive_vi(sys_, ext, frames, frame_dt, grav, blank=None, lockstep=False):
+    """Track (i, blackout) frames of the VI scene with their exact IMU; a
+    blackout frame gets `blank` features. Returns (states, est centres, gt
+    centres, frame ids of tracked frames)."""
+    states, est, gt, when = [], [], [], []
+    for i, dark in frames:
+        t = i * frame_dt
+        R, tt = vi_frame_pose(t)
+        feats = blank if dark else ext(R, tt)
+        rows = synth_imu(t - frame_dt, t, grav) if i > 0 else None
+        st, Re, te = sys_.track_features(feats, t, imu=rows)
+        if lockstep:
+            sys_.finish()
+        states.append(st)
+        if Re is not None:
+            est.append(-np.asarray(Re).T @ np.asarray(te))
+            gt.append(vi_pose(t)[1])
+            when.append(i)
+    return states, np.asarray(est), np.asarray(gt), np.asarray(when)
+
+
+def vi_metrics(est, gt, when, after=60):
+    """bench.py's _vi_metrics protocol over the frames after `after`:
+    (|s - 1| of the Horn similarity alignment, the metric ATE without
+    scale, the ground-truth path length)."""
+    from hfnet_slam_torch.evaluation import ate
+    late = when > after
+    _, _, s = ate.align_horn(est[late], gt[late], with_scale=True)
+    path = float(np.linalg.norm(np.diff(gt[late], axis=0), axis=1).sum())
+    return (abs(float(s) - 1.0), float(ate.ate_rmse(est[late], gt[late], with_scale=False)),
+            path)

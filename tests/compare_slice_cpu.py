@@ -16,7 +16,14 @@ stats, loop edges, brute-force calls by (NA, NB), pre- and post-correction
 ATE by bench.py's sync protocol. small: tests/test_loop.py's 170 frames
 (~50 s for the reference, ~35 s for the port); production: bench.py's 330
 frames at 1024 slots (chip_smoke.py's circuit; compiles the reference at
-full width, which is heavy on host memory)."""
+full width, which is heavy on host memory).
+
+vi: the visual-inertial scene, sync; frames tracked, IMU stage, keyframes,
+vi_init_scale_err and the metric ATE after frame 60 (bench.py's
+_vi_metrics protocol). small: tests/test_vi_slam.py's 110 frames at 20 Hz
+(~150 s for the reference, mostly compiling, ~70 s for the port);
+production: bench.py's 100 frames at 10 Hz at 1024 slots (chip_smoke.py's
+phase 10 on the CPU; heavy on host memory)."""
 import argparse
 import json
 import os
@@ -29,13 +36,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 import torch  # noqa: E402
 
-from _torch_parity import (LOOP_PRODUCTION, LOOP_SMALL, PRODUCTION, SMALL, build,  # noqa: E402
-                           build_loop, run, run_loop)
+from _torch_parity import (LOOP_PRODUCTION, LOOP_SMALL, PRODUCTION, SMALL, VI_SMALL,  # noqa: E402
+                           build, build_loop, build_vi, drive_vi, run, run_loop, vi_metrics)
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=["browse", "loop"], default="browse")
+    ap.add_argument("--scene", choices=["browse", "loop", "vi"], default="browse")
     ap.add_argument("--size", choices=["small", "production"], default="small")
     ap.add_argument("--threads", type=int, default=4)
     args = ap.parse_args()
@@ -43,6 +50,9 @@ def main():
     torch.set_num_threads(args.threads)
     if args.scene == "loop":
         return compare_loop(LOOP_SMALL if args.size == "small" else LOOP_PRODUCTION, args.size)
+    if args.scene == "vi":
+        from hfnet_slam_torch.scenes import VI_PRODUCTION
+        return compare_vi(VI_SMALL if args.size == "small" else VI_PRODUCTION, args.size)
     size, n, jolt = (SMALL, 60, 40) if args.size == "small" else (PRODUCTION, 120, 80)
     from hfnet_slam_torch.evaluation import ate
 
@@ -96,6 +106,20 @@ def compare_loop(size, name):
             "loop_edges": [list(map(int, e)) for e in sys_.store.loop_edges],
             "keyframes": int(sys_.store.kf_valid.sum()), "brute_force_calls": calls,
             "ate_pre_m": pre, "ate_post_m": post}), flush=True)
+
+
+def compare_vi(size, name):
+    for pkg in ("tpu", "torch"):
+        sys_, ext = build_vi(pkg, size, device="cpu")
+        _, est, gt, when = drive_vi(sys_, ext, [(i, False) for i in range(size["frames"])],
+                                    size["frame_dt"], size["grav"])
+        scale_err, ate_m, path = vi_metrics(est, gt, when)
+        print(json.dumps({
+            "package": "hfnet_slam_" + pkg, "scene": "vi", "size": name,
+            "frames": size["frames"], "frames_tracked": len(when),
+            "imu_initialized": bool(sys_.store.imu_initialized), "stage": int(sys_.vi.stage),
+            "keyframes": int(sys_.store.kf_valid.sum()), "vi_init_scale_err": scale_err,
+            "ate_vi_metric_m": ate_m, "path_m": path}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The hand-written row_top2 kernel against its plain version, on the card
 (from one thread and from two at once, as the async pipeline calls it), the
-loop-closing and relocalization paths that launch it, and the HF-Net
-extractor and its prefetch pipeline on the card.
+loop-closing and relocalization paths that launch it, the HF-Net
+extractor and its prefetch pipeline on the card, and the visual-inertial
+solvers on the card against the same code on the CPU.
 
 These tests need an NVIDIA card (marker `cuda`) and skip without one. The
 file imports neither jax nor hfnet_slam_tpu, so it runs on the GPU machine,
@@ -11,7 +12,10 @@ which has no jax, without the suite's conftest:
 
 Tolerances: idx and gated match indices exactly; best and second 1e-5
 (float32 over <= 256 unit-norm terms, summed in another order).
-chip_smoke.py holds the kernel to the same rules at the slice's shapes."""
+chip_smoke.py holds the kernel to the same rules at the slice's shapes.
+Visual-inertial: preintegration and the per-frame VI solve within 1e-4 of
+the CPU, inlier masks exactly; vi_ba_iterate's masks exactly and its states
+within 1e-3 (index_add_ accumulates with atomics on the card)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -287,3 +291,190 @@ def test_pipeline_waits_for_frames_the_consumer_stream_writes(cuda):
     got = [feats for _, feats in pipeline_frames(ext, frames(), lookahead=1)]
     for img, feats in zip(images, got):
         assert all(torch.equal(x, y) for x, y in zip(feats, ext(img + 1.0)))
+
+
+# ---------------------------------------------------------------------------
+# visual-inertial solvers: the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _imu_block(seed, n=60, dt=0.005):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    meas = np.zeros((n, 7), np.float32)
+    meas[:, :3] = rng.normal(0, 1.0, (n, 3)) + np.array([0.0, 0.0, 9.81])
+    meas[:, 3:6] = rng.normal(0, 0.4, (n, 3))
+    meas[:, 6] = dt
+    mask = rng.random(n) > 0.2
+    return torch.from_numpy(meas), torch.from_numpy(mask)
+
+
+def _both(x, cuda):
+    return x, x.to(cuda)
+
+
+def _close(a, b, tol, what):
+    err = float((a.cpu().double() - b.cpu().double()).abs().max())
+    assert err <= tol * max(float(b.abs().max()), 1.0), f"{what}: {err}"
+
+
+def test_preintegration_on_the_card_matches_the_cpu(cuda):
+    from hfnet_slam_torch.geometry import imu as IMU
+
+    meas, mask = _imu_block(0)
+    calib = IMU.default_calib()
+    bg, ba = torch.tensor([0.01, -0.02, 0.005]), torch.tensor([0.05, 0.0, -0.02])
+    p_cpu = IMU.integrate(meas, mask, calib, bg, ba)
+    rows0 = IMU.rows_integrated
+    p_gpu = IMU.integrate(meas.to(cuda), mask.to(cuda), calib, bg.to(cuda), ba.to(cuda))
+    assert IMU.rows_integrated - rows0 == int(mask.sum())
+    assert p_gpu.dR.device.type == "cuda"
+    for f in IMU.Preintegrated._fields:
+        _close(getattr(p_gpu, f), getattr(p_cpu, f), 1e-4, f)
+
+
+def _vi_pose_problem(seed):
+    """An anchor state, a perturbed current guess and 256 observations of a
+    point cloud, 20 of them outliers (CPU tensors)."""
+    import numpy as np
+
+    from hfnet_slam_torch import lie
+    from hfnet_slam_torch.geometry import cameras
+    from hfnet_slam_torch.geometry import imu as IMU
+    from hfnet_slam_torch.optim import inertial as VI
+
+    rng = np.random.default_rng(seed)
+    cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
+    R1 = lie.so3_exp(torch.tensor([0.05, -0.1, 0.2]))
+    p1, v1 = torch.tensor([0.3, -0.1, 0.0]), torch.tensor([0.4, 0.1, -0.2])
+    meas, mask = _imu_block(seed, n=10)
+    pre = IMU.integrate(meas, torch.ones(10, dtype=torch.bool), IMU.default_calib(),
+                        torch.zeros(3), torch.zeros(3))
+    R2, p2, v2 = IMU.predict_state(R1, p1, v1, torch.zeros(3), torch.zeros(3), pre)
+    pts = torch.tensor(rng.uniform(-4, 4, (256, 3)) + [0, 0, 8], dtype=torch.float32)
+    R_cw, t_cw = VI.body_to_cam(R2, p2, torch.eye(3), torch.zeros(3))
+    uv = cam.project(pts @ R_cw.T + t_cw) + torch.tensor(rng.normal(0, 0.3, (256, 2)),
+                                                         dtype=torch.float32)
+    uv[:20] += 30.0
+    guess = (R2 @ lie.so3_exp(torch.tensor([0.02, -0.01, 0.03])),
+             p2 + torch.tensor([0.05, -0.03, 0.02]), v2 + 0.1)
+    z3 = torch.zeros(3)
+    return cam, (R1, p1, v1, z3, z3), pre, guess, (pts, uv, torch.ones(256),
+                                                   torch.ones(256, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("marg", [False, True])
+def test_pose_inertial_optimize_on_the_card_matches_the_cpu(cuda, marg):
+    from hfnet_slam_torch.optim import inertial as VI
+
+    cam, anchor, pre, guess, obs = _vi_pose_problem(1)
+
+    def run(dev):
+        c = cam.to(dev)
+        mv = [x.to(dev) for x in (torch.eye(3), torch.zeros(3))]
+        a = [x.to(dev) for x in anchor]
+        g = [x.to(dev) for x in guess]
+        o = [x.to(dev) for x in obs]
+        p = pre.to(dev)
+        if not marg:
+            return VI.pose_inertial_optimize(c.kind, c.params, *mv, *a, p, *g, *o)
+        H = VI.pose_inertial_optimize(c.kind, c.params, *mv, *a, p, *g, *o)["H"]
+        return VI.pose_inertial_optimize_marg(c.kind, c.params, *mv, *a, H, p, *g, *o)
+
+    r_cpu, r_gpu = run("cpu"), run(cuda)
+    assert r_gpu["R"].device.type == "cuda"
+    assert torch.equal(r_gpu["inlier"].cpu(), r_cpu["inlier"])
+    for k in ("R", "p", "v", "bg", "ba"):
+        _close(r_gpu[k], r_cpu[k], 1e-4, k)
+
+
+def test_minimum_norm_lstsq_on_the_card(cuda):
+    """A rank-deficient system (two dependent column pairs): the SVD
+    replacement gives the minimum-norm solution on the card, where
+    torch.linalg.lstsq's CUDA driver (gels) assumes full rank."""
+    import numpy as np
+
+    from hfnet_slam_torch.optim import inertial as VI
+
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(30, 8))
+    A[:, 5] = A[:, 1] + A[:, 2]
+    A[:, 7] = 2.0 * A[:, 3]
+    b = rng.normal(size=30)
+    want = np.linalg.lstsq(A, b, rcond=None)[0]  # minimum norm, float64
+    At = torch.tensor(A, dtype=torch.float32, device=cuda)
+    x = VI.lstsq_min_norm(At, torch.tensor(b, dtype=torch.float32, device=cuda)[:, None])
+    np.testing.assert_allclose(x[:, 0].cpu().numpy(), want, atol=1e-4)
+
+
+def test_vi_ba_iterate_on_the_card_matches_the_cpu(cuda):
+    """Six keyframes on a simulated inertial chain, 80 landmarks seen by all
+    of them, 20 observations corrupted: the card's LM against the CPU's."""
+    import numpy as np
+
+    from hfnet_slam_torch import lie
+    from hfnet_slam_torch.geometry import cameras
+    from hfnet_slam_torch.geometry import imu as IMU
+    from hfnet_slam_torch.optim import inertial as VI
+    from hfnet_slam_torch.optim import vi_ba
+
+    rng = np.random.default_rng(3)
+    cam = cameras.pinhole(458.0, 457.0, 367.0, 248.0, 752, 480, device="cpu")
+    n_kf, m, steps, dt = 6, 80, 60, 0.005
+    grav = torch.tensor(IMU.GRAVITY_VEC)
+    R, p, v = torch.eye(3), torch.zeros(3), torch.zeros(3)
+    Rs, ps, vs, pres = [R], [p], [v], []
+    for link in range(n_kf - 1):
+        meas = torch.zeros((steps, 7))
+        for i in range(steps):
+            t = (link * steps + i) * dt
+            w = torch.tensor([0.05 * np.sin(t), 0.1, 0.08 * np.cos(2 * t)], dtype=torch.float32)
+            a_w = torch.tensor([0.6 * np.cos(t), 0.5 * np.sin(1.3 * t), 0.3 * np.cos(0.7 * t)],
+                               dtype=torch.float32)
+            meas[i, :3] = R.T @ (a_w - grav)
+            meas[i, 3:6] = w
+            meas[i, 6] = dt
+            p = p + v * dt + 0.5 * a_w * dt * dt
+            v = v + a_w * dt
+            R = R @ lie.so3_exp(w * dt)
+        pres.append(IMU.integrate(meas, torch.ones(steps, dtype=torch.bool),
+                                  IMU.default_calib(), torch.zeros(3), torch.zeros(3)))
+        Rs.append(R)
+        ps.append(p)
+        vs.append(v)
+    pts = torch.tensor(rng.uniform(-4, 4, (m, 3)) + [0, 0, 9], dtype=torch.float32)
+    uv = []
+    for k in range(n_kf):
+        R_cw, t_cw = VI.body_to_cam(Rs[k], ps[k], torch.eye(3), torch.zeros(3))
+        uv.append(cam.project(pts @ R_cw.T + t_cw))
+    uv = torch.cat(uv) + torch.tensor(rng.normal(0, 0.3, (n_kf * m, 2)), dtype=torch.float32)
+    uv[:20] += 60.0
+    E = n_kf * m
+    xi = torch.tensor(rng.normal(0, 0.01, (n_kf, 6)), dtype=torch.float32)
+    xi[0] = 0.0
+    prob = vi_ba.VIBAProblem(
+        R_wb=torch.stack(Rs) @ lie.so3_exp(xi[:, :3]), p_wb=torch.stack(ps) + xi[:, 3:],
+        v=torch.stack(vs), bg=torch.zeros((n_kf, 3)), ba=torch.zeros((n_kf, 3)),
+        fixed=torch.zeros(n_kf, dtype=torch.bool), fix_pose_only=torch.arange(n_kf) == 0,
+        points=pts + torch.tensor(rng.normal(0, 0.03, (m, 3)), dtype=torch.float32),
+        Tbc_R=torch.eye(3), Tbc_t=torch.zeros(3),
+        kf_idx=torch.arange(n_kf).repeat_interleave(m), pt_idx=torch.arange(m).repeat(n_kf),
+        uv=uv, inv_sigma2=torch.ones(E), valid=torch.ones(E, dtype=torch.bool),
+        z_meas=torch.zeros(E), wz=torch.zeros(E), li=torch.arange(n_kf - 1),
+        lj=torch.arange(1, n_kf), pre=IMU.stack(pres),
+        lvalid=torch.ones(n_kf - 1, dtype=torch.bool), prior_g=torch.tensor(0.0),
+        prior_a=torch.tensor(0.0))
+
+    def on(dev):
+        return vi_ba.VIBAProblem(*(x.to(dev) if torch.is_tensor(x) else x.to(dev)
+                                   for x in prob))
+
+    rounds = ((8, True), (12, False))
+    out_cpu = vi_ba.vi_bundle_adjust(cam.kind, cam.params, on("cpu"), rounds=rounds)
+    c = cam.to(cuda)
+    out_gpu = vi_ba.vi_bundle_adjust(c.kind, c.params, on(cuda), rounds=rounds)
+    assert out_gpu.R_wb.device.type == "cuda"
+    assert torch.equal(out_gpu.valid.cpu(), out_cpu.valid)
+    assert int((~out_cpu.valid[:20]).sum()) >= 18
+    for k in ("R_wb", "p_wb", "v", "bg", "ba", "points"):
+        _close(getattr(out_gpu, k), getattr(out_cpu, k), 1e-3, k)

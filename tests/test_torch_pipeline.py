@@ -190,8 +190,25 @@ def test_detached_gba_worker_abort_and_supersede(tmp_path):
         assert store.big_change_idx == 1  # only the completed solve wrote back
     finally:
         w.stop()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        w.request("inertial")
+    # 'inertial' is FullInertialBA on the mapper's VIManager, abortable as well
+    calls = []
+
+    class Mapper:
+        vim = object()
+
+        def full_inertial_ba(self, vim, should_abort=None, **kw):
+            calls.append((vim, should_abort is not None, kw))
+
+    w = PL.GBAWorker(Mapper())
+    try:
+        w.request("inertial", rounds=((3, True), (4, False)))
+        w.drain()
+        assert calls == [(Mapper.vim, True, {"rounds": ((3, True), (4, False))})]
+        assert w.full_ba_idx == 1
+        with pytest.raises(ValueError, match="unknown kind"):
+            w.request("stereo")
+    finally:
+        w.stop()
 
 
 def test_stale_local_ba_discarded_after_big_change(tmp_path):

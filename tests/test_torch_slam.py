@@ -76,6 +76,10 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
     from hfnet_slam_torch.models.hfnet import HFNet
     from hfnet_slam_torch.examples import run_euroc
     from hfnet_slam_torch.scenes import euroc_hfnet_system
+    from hfnet_slam_torch.examples import run_euroc_inertial, run_tum_vi
+    from hfnet_slam_torch.geometry.imu import default_calib
+    from hfnet_slam_torch.scenes import VI_SMALL, vi_system
+    from hfnet_slam_torch.slam.vi import VIManager
 
     cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
     store = MapStore(8, 64, 16, 8, 8)
@@ -97,7 +101,12 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
                  lambda: cameras.kb8(190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, 512, 512),
                  lambda: HFExtractor(HFNet(), (96, 128)),
                  lambda: HFNet.from_state({}),
-                 lambda: euroc_hfnet_system()):
+                 lambda: euroc_hfnet_system(),
+                 lambda: SLAMSystem(cam, None, SystemConfig(), imu_calib=default_calib()),
+                 lambda: VIManager(default_calib(), store),
+                 lambda: vi_system(VI_SMALL),
+                 lambda: run_euroc_inertial.main(["unused_dir", "--config", "unused.yaml"]),
+                 lambda: run_tum_vi.main(["unused_dir", "--config", "unused.yaml"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -156,11 +165,13 @@ def test_imu_and_stereo_entry_points_raise():
     from hfnet_slam_torch.slam.tracking import Frame
 
     sys_t, ext = build("torch", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        sys_t.track_monocular_inertial(None, 0.0, np.zeros((1, 7)))
+    # visual-inertial is ported (item 15): a system built without an IMU
+    # calibration ignores IMU rows, as the reference's does
+    st, _, _ = sys_t.track_features(ext(*browse_pose(0)), 0.0, imu=np.zeros((3, 7), np.float32))
+    assert st == 0 and sys_t.tracker.vi is None and sys_t.tracker._imu_since_kf == []
     with pytest.raises(NotImplementedError, match="item 16"):
         sys_t.track_stereo(None, None, 0.0)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         sys_t.track_stereo_inertial(None, None, 0.0, np.zeros((1, 7)))
     with pytest.raises(NotImplementedError, match="item 17"):
         sys_t.install_mesh(None)

@@ -119,8 +119,10 @@ def test_make_camera_and_system_config_equal_the_reference(tmp_path):
     for f in ("th_depth", "th_far", "max_frames_between_kf"):
         assert getattr(gt.tracker, f) == getattr(gj.tracker, f), f
     assert gt.tracker.max_frames_between_kf == 20  # Camera.fps
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t.make_imu_calib()
+    ij, it = j.make_imu_calib(), t.make_imu_calib()  # the IMU keys' defaults
+    for f in ("sigma_g", "sigma_a", "sigma_gw", "sigma_aw", "Tbc_R", "Tbc_t"):
+        np.testing.assert_array_equal(np.asarray(getattr(it, f), np.float32),
+                                      np.asarray(getattr(ij, f), np.float32))
     with pytest.raises(NotImplementedError, match="item 16"):
         t.make_camera_right()
 
