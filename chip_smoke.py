@@ -44,7 +44,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      sustained, a forward / post-processing split per level by CUDA
      events) and the bf16 keypoints' overlap with the float32 ones;
   8. async loop circuit: phase 5's circuit with async_mapping=True (the
-     mapping, loop and GBA worker threads) in bench.py's async protocol:
+     mapping, loop and GBA worker threads), its first 180 of 330 frames
+     (1.2 laps, the revisit included), in bench.py's async protocol:
      frames paced at max(50 ms, 2 x phase 5's p50 from frame 12 on), the
      camera yielding while more than one keyframe waits for mapping (3 s at
      most). Corrections, pre/post/keyframe ATE beside phase 5's, frame p50
@@ -71,22 +72,44 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      calls), per-stage ms (the per-frame VI solves, the inertial window BA,
      each init stage, FullInertialBA) and row_top2 launches by shape;
  11. async visual-inertial blackout: tests/test_vi_dropout.py's async plan at
-     production widths (90 frames, 60-69 featureless) with that test's
-     assertions, plus at frame 45 every keypoint shifted 40 px with its
+     production widths (its first 80 of 90 frames, 60-69 featureless) with
+     that test's assertions, plus at frame 45 every keypoint shifted 40 px with its
      descriptor kept, which sends the frame to the reference keyframe's
      brute force; row_top2 launches by thread and shape, at least 2 on the
      VI path, and the kernel re-checked exactly on the first VI-path call
-     with a non-empty maskA.
+     with a non-empty maskA;
+ 12. RGB-D browse: phase 4's scene through track_rgbd, with ground-truth
+     depth (0.5% noise) splatted into a 640x480 depth image per frame: at
+     least 105 of 120 frames tracked, metric ATE <= 0.25 m and <= 1.5 x the
+     scale-corrected ATE + 0.05 m, the map from stereo initialization at
+     frame 0, at least 2 row_top2 launches after the jolt, the first
+     re-checked with no index differing; frame p50 / p99, keyframes and the
+     depth points each created;
+ 13. stereo browse: the same through track_stereo on a rectified rig (0.1 m
+     baseline) with the same limits, plus the share of left slots that
+     match_stereo gave a depth and its error against ground truth;
+ 14. fisheye rig: tests/test_stereo.py's KB8 pair (cam_right and T_lr set)
+     at production widths, 60 frames through track_stereo: metric ATE <
+     0.08 m, right-bank observations at every keyframe track_stereo creates,
+     right-camera edges in every local BA (their count and any dropped at
+     the edge cap);
+ 15. stereo-inertial: the VI scene with a rectified right camera 0.11 m
+     away, 60 frames at 10 Hz through track_stereo_inertial: IMU stage >= 1,
+     metric ATE <= 0.2 m and <= 5% of the path, VI frame p50 / p99;
+ 16. TUM RGB-D runner: examples/run_tum_rgbd on a 40-frame synthetic
+     sequence (HF-Net at full width, random weights from seed 0): one TUM
+     line per tracked frame, the first keyframe's median depth within 2% of
+     the written depth, extraction and frame p50.
 Phases 5, 6, 8 and 9 keep the inputs of their first loop-association,
 relocalization or matcher calls and, after the phase, hold the kernel against
 its plain version on them (matched indices that differ, and by how much in
 float64). The kernel's main-path launch counts are zeroed just before each
-of phases 4-11's paths and read just after. The line before the last is one JSON
+of phases 4-16's paths and read just after. The line before the last is one JSON
 object describing every kernel; the last line is {"ok": true, "device":
 {...}}. Needs one CUDA card and no network. Without a card, or without the
 repository beside it, it exits non-zero before printing a result.
-`--only kernel` runs phases 1-3 and `--only vi` phases 1-3, 10 and 11, and
-neither prints the result lines.
+`--only kernel` runs phases 1-3, `--only vi` phases 1-3, 10 and 11, and
+`--only stereo` phases 1-3 and 12-16; none prints the result lines.
 """
 from __future__ import annotations
 
@@ -112,6 +135,11 @@ EXTRACT_MIN_SHARED = 0.99
 EXTRACT_TOL_XY = 1e-3
 EXTRACT_TOL_DESC = 1e-4
 SHIFT = (16, 8)  # px, (x, y): the second frame of the extraction phase
+# depth cuts that keep phases 4-16 inside the time limit: phase 8 drives the
+# circuit's first 180 of 330 frames (phase 5 corrects at frames 126 and 152),
+# phase 11 the blackout plan's first 80 of 90 frames (recovered from frame 70)
+ASYNC_LOOP_FRAMES = 180
+VI_BLACKOUT_FRAMES = 80
 TIMED_SHAPES = [(1024, 1024, 256), (1024, 2048, 256), (2048, 1024, 256), (1024, 4096, 256),
                 (4096, 1024, 256), (1024, 8192, 256)]
 
@@ -514,11 +542,16 @@ def recheck(torch, label, captured, exact=False):
     return out
 
 
-def _ate(est, gt):
-    """Scale-corrected ATE of camera centres, metres."""
+def ate_rmse(est, gt, with_scale):
+    """ATE of camera centres, metres; metric without `with_scale`."""
     from hfnet_slam_torch.evaluation import ate
 
-    return float(ate.ate_rmse(np.asarray(est), np.asarray(gt), with_scale=True))
+    return float(ate.ate_rmse(np.asarray(est), np.asarray(gt), with_scale=with_scale))
+
+
+def _ate(est, gt):
+    """Scale-corrected ATE of camera centres, metres."""
+    return ate_rmse(est, gt, with_scale=True)
 
 
 def _kf_ate(store, poses):
@@ -984,7 +1017,7 @@ def phase_loop_async(torch, smi, sync):
     size = LOOP_PRODUCTION
     n, win = size["frames"], size["loop"]["window_mp_cap"]
     sys_, ext = loop_system(size, async_mapping=True)  # device=None: CUDA
-    poses = [ring_pose(i, n, size["total_angle"]) for i in range(n)]
+    poses = [ring_pose(i, n, size["total_angle"]) for i in range(ASYNC_LOOP_FRAMES)]
     feats = [ext(R, t) for R, t in poses]
     torch.cuda.synchronize()
     lc, gba = sys_.loop_closer, sys_.gba_worker
@@ -1061,7 +1094,8 @@ def phase_loop_async(torch, smi, sync):
             break
     loop_shapes = by_thread.get("hfnet-loop", {})
     res = {
-        "frames_tracked": len(live), "frames": n, "pace_ms": pace * 1e3,
+        "frames_tracked": len(live), "frames": len(poses), "circuit_frames": n,
+        "pace_ms": pace * 1e3,
         "corrections": stats["corrected"], "detected": stats["detected"],
         "checked": stats["checked"], "loop_worker_processed": loop_done,
         "loop_worker_skipped": loop_skipped, "gba_completed": full, "gba_aborted": aborted,
@@ -1231,8 +1265,8 @@ def phase_vi(torch, smi):
 
 
 def phase_vi_async(torch, smi):
-    """tests/test_vi_dropout.py's async plan at production widths: 90 frames
-    at 10 Hz, frames 60-69 featureless, and at frame 45 the keypoints shifted
+    """tests/test_vi_dropout.py's async plan at production widths: its first
+    80 of 90 frames at 10 Hz, frames 60-69 featureless, and at frame 45 the keypoints shifted
     40 px with their descriptors kept (the projection search misses, the
     reference keyframe's brute force matches): the first VI-path
     brute-force call with a non-empty maskA is re-checked exactly."""
@@ -1241,7 +1275,7 @@ def phase_vi_async(torch, smi):
     from hfnet_slam_torch.slam.tracking import LOST, OK, RECENTLY_LOST
 
     size = dict(VI_PRODUCTION, frame_dt=VI_DROPOUT["frame_dt"], grav=VI_DROPOUT["grav"])
-    n, dark, shift_at = VI_DROPOUT["frames"], VI_DROPOUT["blackout"], 45
+    n, dark, shift_at = VI_BLACKOUT_FRAMES, VI_DROPOUT["blackout"], 45
     sys_, ext = vi_system(VI_PRODUCTION, async_mapping=True)  # device=None: CUDA
     feeds = _vi_feeds(torch, ext, size, n, sys_.device, dark=dark, shift_at=shift_at)
     vi_path = lambda: sys_.store.imu_initialized  # noqa: E731
@@ -1387,13 +1421,304 @@ def phase_euroc_runner(torch, smi, async_sys):
     return launches, by_shape, rech
 
 
+def _depth_browse(torch, smi, mode):
+    """Phases 12 and 13: the browse at production widths, 120 frames with
+    the 0.1 rad jolt from frame 80, through track_rgbd (RGB-D) or
+    track_stereo (the rectified rig). The kernel is re-checked exactly on
+    the first reference-keyframe matcher call after the jolt."""
+    from hfnet_slam_torch.ops import stereo
+    from hfnet_slam_torch.scenes import (PRODUCTION, STEREO_BASELINE, browse_pose, depth_image,
+                                         rgbd_system, stereo_images, stereo_system)
+    from hfnet_slam_torch.slam.tracking import OK
+
+    n, jolt = 120, 80
+    sys_, ext = (rgbd_system if mode == "rgbd" else stereo_system)(PRODUCTION)  # CUDA
+    tr, store = sys_.tracker, sys_.store
+    poses = [browse_pose(i, jolt) for i in range(n)]
+    assoc = []  # stereo: (depth, left landmark ids) of each frame
+    real_match = stereo.match_stereo
+
+    def spy_match(*a, **k):
+        depth, uR = real_match(*a, **k)
+        assoc.append((depth.cpu().numpy(), ext.last_ids.copy()))
+        return depth, uR
+
+    made = []  # depth points created at each keyframe
+    real_points = tr._create_depth_points
+
+    def spy_points(frame, k):
+        n0 = int(store.mp_valid.sum())
+        real_points(frame, k)
+        made.append(int(store.mp_valid.sum()) - n0)
+
+    tr._create_depth_points = spy_points
+    stereo.match_stereo = spy_match
+    frame_i = [0]
+    states, est, gt, ms = [], [], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        with MatcherCalls(lambda dB: True, lambda: frame_i[0] >= jolt) as calls:
+            for i, (R, t) in enumerate(poses):
+                frame_i[0] = i
+                if mode == "rgbd":
+                    args = ((R, t), depth_image(ext.world, ext.cam, R, t, i))
+                else:
+                    args = stereo_images(R, t, np.eye(3), (-STEREO_BASELINE, 0.0, 0.0))
+                f0 = time.perf_counter()
+                st, Re, te = (sys_.track_rgbd if mode == "rgbd" else sys_.track_stereo)(
+                    *args, 0.05 * i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - f0) * 1e3)
+                states.append(int(st))
+                if Re is not None:
+                    est.append(-Re.T @ te)
+                    gt.append(-R.T @ t)
+    finally:
+        stereo.match_stereo = real_match
+        tr._create_depth_points = real_points
+    launches, by_shape = read_counts()
+    est, gt = np.asarray(est), np.asarray(gt)
+    k0 = int(store.valid_kf_ids()[0])
+    ate_m = ate_rmse(est, gt, with_scale=False)
+    ate_s = ate_rmse(est, gt, with_scale=True)
+    res = {
+        "frames": n, "frames_tracked": len(est), "first_state": states[0],
+        "first_keyframe_ts": float(store.kf_timestamp[k0]),
+        "keyframes": int(store.kf_valid.sum()), "map_points": int(store.mp_valid.sum()),
+        "depth_points_per_keyframe": made,
+        "first_keyframe_depths": int((store.kf_depth[k0] > 0).sum()),
+        "ate_metric_m": ate_m, "ate_scale_corrected_m": ate_s,
+        "frame_ms_p50": float(np.percentile(ms[5:], 50)),
+        "frame_ms_p99": float(np.percentile(ms[5:], 99)),
+        "row_top2_launches": launches, "row_top2_launches_after_jolt": calls.launches,
+        "row_top2_launches_by_shape": by_shape, "card": smi,
+    }
+    if mode == "stereo":
+        share, rel = [], []
+        for (depth, ids), (R, t) in zip(assoc, poses):
+            z = (ext.world.landmarks[ids] @ R.T + t)[:, 2]
+            d = depth[: len(ids)]
+            share.append(float((d > 0).mean()))
+            rel.append(np.abs(d[d > 0] - z[d > 0]) / z[d > 0])
+        rel = np.concatenate(rel)
+        res.update(match_stereo_depth_share=float(np.mean(share)),
+                   match_stereo_rel_err_median=float(np.median(rel)),
+                   match_stereo_rel_err_p90=float(np.percentile(rel, 90)))
+    log(f"{mode}: " + json.dumps(res))
+    check(np.isfinite(est).all(), "NaN/inf in the tracked poses")
+    check(tr.state == OK, f"final tracking state {tr.state}, want OK")
+    check(len(est) >= 105, f"{len(est)} of {n} frames tracked, want >= 105")
+    check(states[0] == OK and store.kf_timestamp[k0] == 0.0,
+          "the first map did not come from stereo initialization at frame 0")
+    check(ate_m <= 0.25, f"metric ATE {ate_m} m > 0.25 m")
+    check(ate_m <= 1.5 * ate_s + 0.05, f"metric ATE {ate_m} m > 1.5 x {ate_s} + 0.05 m")
+    check(calls.launches >= 2, f"row_top2 launched {calls.launches} times after the jolt, "
+          "want >= 2")
+    rech = recheck(torch, f"{mode} reference-keyframe match", calls.first, exact=True)
+    return launches, by_shape, rech
+
+
+def saved_centres(sys_, gt_centre):
+    """Camera centres of the saved trajectory (every tracked frame rebuilt
+    through its reference keyframe) and the ground truth at their times."""
+    from hfnet_slam_torch.utils import trajectory as TJ
+
+    rec = TJ.recovered(sys_.trajectory)
+    return (np.asarray([-np.asarray(R).T @ np.asarray(t) for _, R, t in rec]),
+            np.asarray([gt_centre(ts)[1] for ts, _, _ in rec]))
+
+
+def phase_rig(torch, smi):
+    """Phase 14: the KB8 fisheye rig (cam_right and T_lr set) at production
+    widths, 60 frames through track_stereo: right-bank observations at every
+    keyframe track_stereo creates and ToBody edges in every local BA."""
+    from hfnet_slam_torch.scenes import RIG_PRODUCTION, rig_pose, rig_system, stereo_images
+
+    size = RIG_PRODUCTION
+    sys_, _, (R_rl, t_rl) = rig_system(size)  # CUDA
+    mapper, store = sys_.mapper, sys_.store
+    right_edges, real = [], mapper._right_edges
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        right_edges.append((mapper.stats["right_edges"], mapper.stats["right_edges_dropped"]))
+        return out
+
+    mapper._right_edges = spy
+    stages = StageTimes(torch, {"local_ba": (mapper, "local_ba")}, fence=False)
+    est, gt, ms, bank = [], [], [], {}
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        with stages:
+            for i in range(size["frames"]):
+                R, t = rig_pose(i, size["step"])
+                f0 = time.perf_counter()
+                _, Re, te = sys_.track_stereo(*stereo_images(R, t, R_rl, t_rl), 0.1 * i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - f0) * 1e3)
+                if Re is not None:
+                    est.append(-Re.T @ te)
+                    gt.append(-R.T @ t)
+                for k in store.valid_kf_ids():
+                    bank.setdefault(int(store.kf_uid[k]), int((store.kf_obs_r[k] >= 0).sum()))
+    finally:
+        mapper._right_edges = real
+    launches, by_shape = read_counts()
+    ate_m = ate_rmse(est, gt, with_scale=False)
+    n_ba = len(stages.ms["local_ba"])
+    res = {"frames": size["frames"], "frames_tracked": len(est),
+           "keyframes": int(store.kf_valid.sum()), "ate_metric_m": ate_m,
+           "right_bank_by_keyframe": bank, "local_ba_calls": n_ba,
+           "right_edges_by_local_ba": [e for e, _ in right_edges],
+           "right_edges_dropped_by_local_ba": [d for _, d in right_edges],
+           "frame_ms_p50": float(np.percentile(ms[5:], 50)),
+           "frame_ms_p99": float(np.percentile(ms[5:], 99)),
+           "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape, "card": smi}
+    log("rig: " + json.dumps(res))
+    check(np.isfinite(np.asarray(est)).all(), "NaN/inf in the tracked poses")
+    check(ate_m < 0.08, f"metric ATE {ate_m} m >= 0.08 m")
+    # the first keyframe comes from stereo initialization, which stores no
+    # right observations in either package; track_stereo makes the others
+    later = [v for u, v in sorted(bank.items())[1:]]
+    check(len(later) >= 1 and all(v > 0 for v in later),
+          f"a keyframe without right-bank observations: {bank}")
+    check(n_ba >= 1 and len(right_edges) == n_ba and all(e > 0 for e, _ in right_edges),
+          f"a local BA without right-camera edges: {right_edges} over {n_ba} calls")
+    return launches, by_shape
+
+
+def phase_stereo_vi(torch, smi):
+    """Phase 15: the VI scene at production widths with a rectified right
+    camera 0.11 m along x, 60 frames at 10 Hz through
+    track_stereo_inertial. The metric ATE is that of the saved trajectory
+    (every tracked frame rebuilt through its reference keyframe in the final
+    map): the IMU initialization rotates the world to gravity, so track-time
+    poses from before and after it lie in different frames."""
+    from hfnet_slam_torch.scenes import (VI_BASELINE, VI_PRODUCTION, stereo_images,
+                                         stereo_vi_system, synth_imu, vi_frame_pose, vi_pose)
+
+    size, n = VI_PRODUCTION, 60
+    sys_, _ = stereo_vi_system(size)  # CUDA
+    feeds = []
+    for i in range(n):
+        t = i * size["frame_dt"]
+        rows = synth_imu(t - size["frame_dt"], t, size["grav"]) if i > 0 else None
+        feeds.append((t, stereo_images(*vi_frame_pose(t), np.eye(3), (-VI_BASELINE, 0.0, 0.0)),
+                      rows, vi_pose(t)[1]))
+    torch.cuda.synchronize()
+    reset_counts()
+    states, est, gt, ms, vi_frames = [], [], [], [], []
+    for i, (t, images, rows, c) in enumerate(feeds):
+        f0 = time.perf_counter()
+        st, Re, te = sys_.track_stereo_inertial(*images, t, rows)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - f0) * 1e3)
+        states.append(int(st))
+        if sys_.tracker._vi_active():
+            vi_frames.append(i)
+        if Re is not None:
+            est.append(-Re.T @ te)
+            gt.append(c)
+    launches, by_shape = read_counts()
+    est, gt, ms = np.asarray(est), np.asarray(gt), np.asarray(ms)
+    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    rec_c, rec_g = saved_centres(sys_, vi_pose)
+    ate_m = ate_rmse(rec_c, rec_g, with_scale=False)
+    res = {"frames": n, "frames_tracked": len(est), "first_state": states[0],
+           "imu_initialized": bool(sys_.store.imu_initialized), "stage": sys_.vi.stage,
+           "keyframes": int(sys_.store.kf_valid.sum()), "vi_frames": len(vi_frames),
+           "ate_metric_m": ate_m, "path_m": path,
+           "ate_scale_corrected_m": ate_rmse(rec_c, rec_g, with_scale=True),
+           "ate_metric_track_time_after_init_m":
+               ate_rmse(est[vi_frames], gt[vi_frames], with_scale=False)
+               if len(vi_frames) > 3 and len(est) == n else None,
+           "frame_ms_p50": float(np.percentile(ms[5:], 50)),
+           "frame_ms_p99": float(np.percentile(ms[5:], 99)),
+           "vi_frame_ms_p50": float(np.percentile(ms[vi_frames], 50)) if vi_frames else None,
+           "vi_frame_ms_p99": float(np.percentile(ms[vi_frames], 99)) if vi_frames else None,
+           "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape, "card": smi}
+    log("stereo vi: " + json.dumps(res))
+    check(np.isfinite(est).all(), "NaN/inf in the tracked poses")
+    check(states[0] == 1, "stereo depth did not initialize the map at frame 0")
+    check(sys_.store.imu_initialized and sys_.vi.stage >= 1, f"IMU stage {sys_.vi.stage}")
+    check(ate_m <= 0.2, f"metric ATE {ate_m} m > 0.2 m")
+    check(ate_m <= 0.05 * path, f"metric ATE {ate_m} m > 5% of the {path} m path")
+    return launches, by_shape
+
+
+def phase_tum_rgbd_runner(torch, smi):
+    """Phase 16: examples/run_tum_rgbd on a 40-frame synthetic TUM RGB-D
+    sequence (HF-Net with seeded random weights at full width): one TUM line
+    per tracked frame, and the first keyframe's depths are the written
+    plane's in metres (the depth map factor applied once)."""
+    from hfnet_slam_torch.examples import run_tum_rgbd
+    from hfnet_slam_torch.scenes import tum_plane_depth, write_tum_rgbd_sequence
+    from hfnet_slam_torch.utils.timing import timings
+
+    n = 40
+    with tempfile.TemporaryDirectory() as tmp:
+        seq, cfg, stamps = write_tum_rgbd_sequence(tmp, n)
+        out = os.path.join(tmp, "traj.txt")
+        timings.reset()
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            sys_ = run_tum_rgbd.main([seq, "--config", cfg, "--out", out])
+        secs = time.perf_counter() - t0
+        launches, by_shape = read_counts()
+        for line in printed.getvalue().splitlines():
+            log(f"  run_tum_rgbd: {line}")
+        st = timings.stats()
+        lines = open(out).read().splitlines()
+    store = sys_.store
+    k0 = int(store.valid_kf_ids()[0])
+    d = store.kf_depth[k0]
+    med, want = float(np.median(d[d > 0])), float(np.median(tum_plane_depth(480, 640)))
+    res = {"frames": n, "tracked_lines": len(lines), "keyframes": int(store.kf_valid.sum()),
+           "first_keyframe_median_depth_m": med, "written_median_depth_m": want,
+           "seconds": secs, "extract_ms_p50": st["extract"][3],
+           "frame_total_ms_p50": st["frame_total"][3],
+           "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape, "card": smi}
+    log("tum rgbd runner: " + json.dumps(res))
+    check(sys_.device.type == "cuda" and sys_.cfg.depth_factor == 1.0,
+          "the runner is not on the card or scales depth twice")
+    check(len(lines) == len(sys_.trajectory) >= 1,
+          f"{len(lines)} TUM lines for {len(sys_.trajectory)} tracked frames")
+    check(store.kf_timestamp[k0] == float(stamps[0]), "the map did not start at frame 0")
+    check(abs(med - want) <= 0.02 * want, f"first keyframe median depth {med} m, written {want}")
+    check(st["frame_total"][0] == n and st["extract"][0] == n, "the timing report is short")
+    return launches, by_shape
+
+
+def phases_stereo(torch, smi):
+    """Phases 12-16, each with its launch counts zeroed just before its path
+    and read just after: launches and shapes by path, the re-checks, and
+    each phase's seconds."""
+    out = {"launches": {}, "shapes": {}, "rechecks": [], "seconds": {}}
+    for name, run in (("rgbd", lambda: _depth_browse(torch, smi, "rgbd")),
+                      ("stereo", lambda: _depth_browse(torch, smi, "stereo")),
+                      ("rig", lambda: phase_rig(torch, smi)),
+                      ("stereo_vi", lambda: phase_stereo_vi(torch, smi)),
+                      ("tum_rgbd_runner", lambda: phase_tum_rgbd_runner(torch, smi))):
+        t0 = time.perf_counter()
+        launches, shapes, *rech = run()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["launches"][name], out["shapes"][name] = launches, shapes
+        out["rechecks"].extend(rech)
+    return out
+
+
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port (one GPU)")
-    ap.add_argument("--only", choices=("kernel", "vi"),
-                    help="run phases 1-3 (and with 'vi' phases 10-11) and stop, without the "
-                    "result lines")
+    ap.add_argument("--only", choices=("kernel", "vi", "stereo"),
+                    help="run phases 1-3 (with 'vi' also phases 10-11, with 'stereo' phases "
+                    "12-16) and stop, without the result lines")
     args = ap.parse_args(argv)
     import torch
 
@@ -1409,6 +1734,8 @@ def main(argv=None):
     if args.only == "vi":
         phase_vi(torch, smi)
         phase_vi_async(torch, smi)
+    if args.only == "stereo":
+        phases_stereo(torch, smi)
     if args.only:
         log(f"chip_smoke: --only {args.only}: those phases passed; no result printed")
         return 0
@@ -1430,9 +1757,13 @@ def main(argv=None):
     n_vi, shapes_vi, _ = phase_vi(torch, smi)
     t7 = time.perf_counter()
     n_via, shapes_via, threads_via, rech_via = phase_vi_async(torch, smi)
+    t8 = time.perf_counter()
+    depth = phases_stereo(torch, smi)
     log(f"phase seconds: browse {t1 - t0:.1f}, loop {t2 - t1:.1f}, "
         f"relocalization {t3 - t2:.1f}, extraction {t4 - t3:.1f}, loop async {t5 - t4:.1f}, "
-        f"euroc runner {t6 - t5:.1f}, vi {t7 - t6:.1f}, vi async {time.perf_counter() - t7:.1f}")
+        f"euroc runner {t6 - t5:.1f}, vi {t7 - t6:.1f}, vi async {t8 - t7:.1f}, "
+        + ", ".join(f"{k} {v:.1f}" for k, v in depth["seconds"].items())
+        + f"; phases 4-16 {time.perf_counter() - t0:.1f}")
 
     # the browse shape leads; the loop-association shapes follow under
     # "shapes". Paths are main-path runs; "relocalization_calls" is the part
@@ -1443,17 +1774,18 @@ def main(argv=None):
         "name": "row_top2", "route": "cuda",
         "source": "hfnet_slam_torch/csrc/row_top2.cu",
         "replaces": "hfnet_slam_tpu/ops/pallas_match.py:52",
-        "launches": n_browse + n_loop + n_reloc + n_track + n_async + n_euroc + n_vi + n_via,
+        "launches": (n_browse + n_loop + n_reloc + n_track + n_async + n_euroc + n_vi + n_via
+                     + sum(depth["launches"].values())),
         "launches_by_path": {"browse": n_browse, "loop": n_loop, "relocalization": n_reloc,
                              "relocalization_calls": n_reloc_calls,
                              "extraction_track": n_track, "extraction_matcher_call": n_call,
                              "loop_async": n_async, "euroc_runner": n_euroc, "vi": n_vi,
-                             "vi_async": n_via},
+                             "vi_async": n_via, **depth["launches"]},
         "launches_by_shape": {"browse": shapes_browse, "loop": shapes_loop,
                               "relocalization": shapes_reloc, "extraction_track": shapes_track,
                               "extraction_matcher_call": shapes_call,
                               "loop_async": shapes_async, "euroc_runner": shapes_euroc,
-                              "vi": shapes_vi, "vi_async": shapes_via},
+                              "vi": shapes_vi, "vi_async": shapes_via, **depth["shapes"]},
         "loop_async_launches_by_thread": threads_async,
         "vi_async_launches_by_thread": threads_via,
         "max_abs_err": max_err,
@@ -1461,7 +1793,7 @@ def main(argv=None):
         "bound_peak": "3xTF32 on the tensor cores, 495 TFLOP/s",
         "shapes": timings[1:],
         "recheck_on_path_inputs": [rech_loop, rech_reloc, rech_track, rech_call, rech_async,
-                                   rech_euroc, rech_via],
+                                   rech_euroc, rech_via, *depth["rechecks"]],
     }
     log(smi)
     log(json.dumps({"kernels": [kern]}))

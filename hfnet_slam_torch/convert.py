@@ -5,7 +5,8 @@ map and the tracker's frame state.
     numpy, -> the port's HFNet state_dict;
   * store_from_reference: the exact .npz the reference's MapStore.save
     writes (hfnet_slam_tpu/slam/map.py, `_ARRAY_FIELDS`) -> the port's
-    MapStore;
+    MapStore, with a stereo rig's right bank (which the snapshot does not
+    hold) handed across beside it;
   * tracker_state_from_reference: the reference tracker's last-frame pose
     and observations, velocity, reference keyframe and local-map candidate
     ids, as numpy, applied to a port Tracker;
@@ -45,17 +46,25 @@ def hfnet_params_from_reference(tree) -> dict:
     return hfnet.state_from_flat(dict(flatten(tree)))
 
 
-def store_from_reference(npz_path_or_dict) -> MapStore:
+def store_from_reference(npz_path_or_dict, right_bank=None) -> MapStore:
     """Port MapStore from a reference map snapshot (a path, an open file, or
-    the dict-like np.load result)."""
+    the dict-like np.load result). right_bank: the reference store's
+    (kf_xy_r, kf_oct_r, kf_obs_r) as numpy, copied into the port's right
+    bank."""
     if isinstance(npz_path_or_dict, dict):
         import io
 
         buf = io.BytesIO()
         np.savez(buf, **npz_path_or_dict)
         buf.seek(0)
-        return MapStore.load(buf)
-    return MapStore.load(npz_path_or_dict)
+        store = MapStore.load(buf)
+    else:
+        store = MapStore.load(npz_path_or_dict)
+    if right_bank is not None:
+        store.enable_right_bank()
+        for name, arr in zip(("kf_xy_r", "kf_oct_r", "kf_obs_r"), right_bank):
+            getattr(store, name)[...] = np.asarray(arr)
+    return store
 
 
 def tracker_state_from_reference(tracker: Tracker, store: MapStore, *, last_R, last_t,

@@ -47,8 +47,9 @@ def build_extractor(settings, cam, n_slots, weights, dev):
                        threshold=settings.threshold, pad_to=n_slots, device=dev)
 
 
-def run(slam, seq, n, fps, imu=True, log_every=50):
-    """Feed frames [0, n) with their IMU rows; returns nothing."""
+def run(slam, seq, n, fps, imu=True, log_every=50, right=None):
+    """Feed frames [0, n) with their IMU rows, as stereo pairs with frame i
+    of the `right` sequence when one is given; returns nothing."""
     from ..utils.timing import timings
 
     t_prev = float(seq.timestamps[0]) - 1.0 / fps
@@ -57,8 +58,14 @@ def run(slam, seq, n, fps, imu=True, log_every=50):
         with timings.section("frame_total"):
             with timings.section("load"):
                 img = seq.image(i)
-            if imu:
-                st, _, _ = slam.track_monocular_inertial(img, t, seq.imu_between(t_prev, t))
+                img_r = right.image(i) if right is not None else None
+            rows = seq.imu_between(t_prev, t) if imu else None
+            if right is not None and imu:
+                st, _, _ = slam.track_stereo_inertial(img, img_r, t, rows)
+            elif right is not None:
+                st, _, _ = slam.track_stereo(img, img_r, t)
+            elif imu:
+                st, _, _ = slam.track_monocular_inertial(img, t, rows)
             else:
                 st, _, _ = slam.track_monocular(img, t)
         t_prev = t

@@ -84,19 +84,20 @@ def kb8(fx, fy, cx, cy, k0, k1, k2, k3, width, height, device=None):
 
 
 def project(kind, params, pc):
-    """Camera-frame points (...,3) -> pixels (...,2); z clamped to _Z_MIN."""
-    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    """Camera-frame points (...,3) -> pixels (...,2); z clamped to _Z_MIN.
+    params is one camera's (P,) vector or a (...,P) one per point."""
+    fx, fy, cx, cy = params[..., 0], params[..., 1], params[..., 2], params[..., 3]
     if kind == PINHOLE:
         z = torch.clamp(pc[..., 2], min=_Z_MIN)
         return torch.stack([fx * pc[..., 0] / z + cx, fy * pc[..., 1] / z + cy], -1)
     if kind == KB8:
-        k = params[4:8]
+        k0, k1, k2, k3 = params[..., 4], params[..., 5], params[..., 6], params[..., 7]
         x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
         r2 = x * x + y * y
         r = torch.sqrt(torch.clamp(r2, min=_Z_MIN * _Z_MIN))
         theta = torch.atan2(r, z)
         th2 = theta * theta
-        d = theta * (1.0 + th2 * (k[0] + th2 * (k[1] + th2 * (k[2] + th2 * k[3]))))
+        d = theta * (1.0 + th2 * (k0 + th2 * (k1 + th2 * (k2 + th2 * k3))))
         scale = torch.where(r2 < 1e-10, 1.0 / torch.clamp(z, min=_Z_MIN), d / r)
         return torch.stack([fx * scale * x + cx, fy * scale * y + cy], -1)
     raise ValueError(f"unknown camera kind {kind}")
@@ -125,8 +126,8 @@ def unproject(kind, params, uv):
 
 
 def project_jac(kind, params, pc):
-    """d(uv)/d(pc): (...,3) -> (...,2,3) closed form."""
-    fx, fy = params[0], params[1]
+    """d(uv)/d(pc): (...,3) -> (...,2,3) closed form; params as in project."""
+    fx, fy = params[..., 0], params[..., 1]
     if kind == PINHOLE:
         x, y = pc[..., 0], pc[..., 1]
         z = torch.clamp(pc[..., 2], min=_Z_MIN)
@@ -137,14 +138,14 @@ def project_jac(kind, params, pc):
         row_v = torch.stack([zero, fy * zinv, -fy * y * zinv2], -1)
         return torch.stack([row_u, row_v], -2)
     if kind == KB8:
-        k = params[4:8]
+        k0, k1, k2, k3 = params[..., 4], params[..., 5], params[..., 6], params[..., 7]
         x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
         r2 = torch.clamp(x * x + y * y, min=1e-12)
         r = torch.sqrt(r2)
         theta = torch.atan2(r, z)
         th2 = theta * theta
-        f_t = theta * (1.0 + th2 * (k[0] + th2 * (k[1] + th2 * (k[2] + th2 * k[3]))))
-        fd_t = 1.0 + th2 * (3 * k[0] + th2 * (5 * k[1] + th2 * (7 * k[2] + th2 * 9 * k[3])))
+        f_t = theta * (1.0 + th2 * (k0 + th2 * (k1 + th2 * (k2 + th2 * k3))))
+        fd_t = 1.0 + th2 * (3 * k0 + th2 * (5 * k1 + th2 * (7 * k2 + th2 * 9 * k3)))
         zz_rr = z * z + r2
         dtheta_dx = x * z / (r * zz_rr)
         dtheta_dy = y * z / (r * zz_rr)

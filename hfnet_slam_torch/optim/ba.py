@@ -11,8 +11,11 @@ reference to a relative tolerance, not bitwise. The camera-point coupling is
 a dense (M, K, 6, 3) block tensor, so the reduced camera system
 S = Hcc - W Hpp^-1 W^T is two batched products, solved densely.
 
-The stereo rig's right-camera edges (cam_sel, rig_R, rig_t, params_r in the
-reference) belong to the stereo slice and are not carried here.
+A stereo rig's right-camera observations (the reference's ToBody edges) ride
+the same engine: `cam_sel` routes each edge through the left camera or the
+right one at (rig_R, rig_t) with the params_r intrinsics
+(factors.reproj_depth_residual_rig). A problem without cam_sel takes the
+plain residual, which the rig residual reduces to exactly at sel = 0.
 """
 from __future__ import annotations
 
@@ -39,20 +42,40 @@ class BAProblem(NamedTuple):
     valid: torch.Tensor       # (E,) bool
     z_meas: Optional[torch.Tensor] = None
     wz: Optional[torch.Tensor] = None
+    # stereo rig: cam_sel (E,) 0 = left, 1 = right camera at (rig_R, rig_t),
+    # x_r = rig_R x_l + rig_t, with the params_r intrinsics
+    cam_sel: Optional[torch.Tensor] = None
+    rig_R: Optional[torch.Tensor] = None
+    rig_t: Optional[torch.Tensor] = None
+    params_r: Optional[torch.Tensor] = None
 
 
-def with_depth_defaults(prob: BAProblem) -> BAProblem:
+def with_depth_defaults(prob: BAProblem, cam_params=None) -> BAProblem:
+    """Fill absent depth fields with mono defaults and, on a rig problem
+    (cam_sel set), absent rig fields with the left camera's."""
     z = torch.zeros_like(prob.inv_sigma2)
-    return prob._replace(z_meas=z if prob.z_meas is None else prob.z_meas,
+    prob = prob._replace(z_meas=z if prob.z_meas is None else prob.z_meas,
                          wz=z if prob.wz is None else prob.wz)
+    if prob.cam_sel is None:
+        return prob
+    dt, dev = prob.poses_R.dtype, prob.poses_R.device
+    return prob._replace(
+        rig_R=torch.eye(3, dtype=dt, device=dev) if prob.rig_R is None else prob.rig_R,
+        rig_t=torch.zeros(3, dtype=dt, device=dev) if prob.rig_t is None else prob.rig_t,
+        params_r=cam_params if prob.params_r is None else prob.params_r)
 
 
 def _edge_terms(cam_kind, cam_params, prob: BAProblem, poses_R, poses_t, points):
     R = poses_R[prob.kf_idx]
     t = poses_t[prob.kf_idx]
     p = points[prob.pt_idx]
-    r, Jc, Jp, depth = factors.reproj_depth_residual(
-        cam_kind, cam_params, R, t, p, prob.uv, prob.z_meas, prob.wz)
+    if prob.cam_sel is None:
+        r, Jc, Jp, depth = factors.reproj_depth_residual(
+            cam_kind, cam_params, R, t, p, prob.uv, prob.z_meas, prob.wz)
+    else:
+        r, Jc, Jp, depth = factors.reproj_depth_residual_rig(
+            cam_kind, cam_params, prob.params_r, prob.rig_R, prob.rig_t, prob.cam_sel,
+            R, t, p, prob.uv, prob.z_meas, prob.wz)
     w = prob.inv_sigma2 * prob.valid * (depth > 0)
     return r, Jc, Jp, w, depth
 
@@ -95,7 +118,7 @@ def ba_iterate(cam_kind, cam_params, prob: BAProblem, n_iters: int, robust: bool
     The lambda floor (1e-4) and the step trust region (0.25 scene units) are
     load-bearing in float32: without them the near-gauge directions of
     monocular BA random-walk under round-off and the map warps."""
-    prob = with_depth_defaults(prob)
+    prob = with_depth_defaults(prob, cam_params)
     K = prob.poses_R.shape[0]
     M = prob.points.shape[0]
     dt, dev = prob.poses_R.dtype, prob.poses_R.device
@@ -177,7 +200,7 @@ def ba_iterate(cam_kind, cam_params, prob: BAProblem, n_iters: int, robust: bool
 
 def classify_edges(cam_kind, cam_params, prob: BAProblem, chi2_th: float, base_valid):
     """Re-classify edges against the base validity set (outlier recycling)."""
-    prob = with_depth_defaults(prob)
+    prob = with_depth_defaults(prob, cam_params)
     r, _, _, _, depth = _edge_terms(cam_kind, cam_params, prob, prob.poses_R,
                                     prob.poses_t, prob.points)
     chi2 = torch.sum(r * r, -1) * prob.inv_sigma2
@@ -191,7 +214,7 @@ def bundle_adjust(cam_kind, cam_params, prob: BAProblem,
     """LM rounds with outlier re-classification between them
     (LocalBundleAdjustment's probe + main solve and its final outlier
     sweep). should_abort: zero-arg callable polled between rounds."""
-    prob = with_depth_defaults(prob)
+    prob = with_depth_defaults(prob, cam_params)
     base_valid = prob.valid
     for n_iters, robust in rounds:
         if should_abort is not None and should_abort():

@@ -44,6 +44,31 @@ VI_SMALL is tests/test_vi_slam.py's (110 frames at 20 Hz, gravity along -z,
 512 slots, 64-d). `write_euroc_inertial_sequence` writes such a run as an
 EuRoC folder (cam0 PNGs of a synthetic texture, imu0/data.csv) with a
 settings file carrying the IMU keys.
+
+Stereo and RGB-D (`rgbd_system`, `stereo_system`, `rig_system`,
+`stereo_vi_system`): a fake extractor takes a pose, not an image, so these
+systems' "images" are poses: `(R_cw, t_cw)` for RGB-D, and
+`(camera, R_cw, t_cw)` for stereo, where the `PoseRig` adapter sends camera
+0 to the left and 1 to the right FakeExtractor; `stereo_images` makes a
+frame's pair. The runs go through track_rgbd, track_stereo and
+track_stereo_inertial themselves.
+  * rgbd: the browse scene with ground-truth depth, 0.5% noise per landmark
+    and frame, splatted into a 640x480 float32 depth image
+    (`depth_image`): each visible landmark fills the 3x3 pixels around its
+    projection, the nearest landmark winning, so the nearest-pixel lookup
+    of a keypoint with the extractor's pixel noise still finds its depth;
+    th_depth 25 m;
+  * stereo: the browse cloud seen by a rectified right camera 0.1 m along
+    x (tests/test_stereo.py's rig), th_depth STEREO_TH_DEPTH (12 m);
+  * rig: tests/test_stereo.py's KB8 512x512 fisheye pair (right camera
+    0.11 m along x, slightly rotated, its own intrinsics) with `cam_right`
+    and `T_lr` set, so the right bank and the ToBody edges run; a cloud 0.3
+    to 5 m in front, the camera sliding along x;
+  * stereo_vi: the VI scene with a rectified right camera 0.11 m along x
+    (EuRoC's baseline), through track_stereo_inertial.
+`write_tum_rgbd_sequence` writes a TUM RGB-D folder (textured 640x480
+frames, 16-bit depth PNGs at factor 5000 of a tilted plane, rgb.txt,
+depth.txt) and a settings file of TUM1's camera for the RGB-D runner.
 """
 from __future__ import annotations
 
@@ -460,3 +485,276 @@ def write_euroc_inertial_sequence(out_dir, n_frames, shake=SHAKE):
     with open(settings, "w") as f:
         f.write(EUROC_IMU_SETTINGS.format(**EUROC_CAM0, **EUROC_HFNET))
     return mav0, settings, stamps
+
+
+# ---------------------------------------------------------------------------
+# stereo and RGB-D scenes
+# ---------------------------------------------------------------------------
+DEPTH_NOISE = 0.005  # relative, per landmark and frame (tests/test_stereo.py:126)
+STEREO_BASELINE = 0.1  # the rectified browse rig (tests/test_stereo.py:21-37)
+# close-point threshold of the rectified rigs, 120 baselines (ORB-SLAM3's
+# settings use 35-40; fewer than 100 points of the browse cloud lie within
+# 10 m of frame 0 at SMALL). A stereo depth at z carries z * 0.42 px / bf of
+# relative noise (0.3 px per keypoint), 11% at 12 m: the noise of far seeds
+# along their rays attenuates the tracked motion: with every point close
+# (th_depth 25 m) chip_smoke.py phase 13 on an H100 gave a metric ATE of
+# 0.086 m against 0.024 m scale-corrected
+STEREO_TH_DEPTH = 12.0
+# tests/test_stereo.py:223-243's KB8 rig: right camera 11 cm along the left
+# one's x, slightly rotated (x_l = R_lr x_r + t_lr), its own intrinsics
+RIG_CAM_L = (190.0, 190.0, 256.0, 256.0, 0.0035, 0.0007, -0.0037, 0.0007, 512, 512)
+RIG_CAM_R = (190.5, 190.2, 255.0, 257.0, 0.0034, 0.0008, -0.0038, 0.0006, 512, 512)
+RIG_PHI_LR = (0.01, -0.02, 0.005)
+RIG_T_LR = (0.11, 0.002, -0.001)
+# the rig run: tests/test_rig.py:182's scene (SMALL: its widths and 14
+# frames) and the same scene at production widths
+RIG_SMALL = dict(n_landmarks=900, extent=8.0, center=(0.0, 0.0, 4.0), desc_dim=32,
+                 pad_to=256, max_per_frame=220, k_max=32, m_max=4096, gdesc_dim=64,
+                 local_mp_cap=512, min_stereo_init_points=50, frames=14, step=(0.10, 0.02),
+                 mapper=dict(ba_kf_cap=8, ba_mp_cap=1024, ba_edge_cap=4096, tri_neighbors=3))
+RIG_PRODUCTION = dict(n_landmarks=3600, extent=10.0, center=(1.5, 0.0, 4.0), desc_dim=256,
+                      pad_to=1024, max_per_frame=900, k_max=256, m_max=16384, gdesc_dim=4096,
+                      local_mp_cap=2048, min_stereo_init_points=100, frames=60,
+                      step=(0.05, 0.01),
+                      mapper=dict(ba_kf_cap=16, ba_mp_cap=4096, ba_edge_cap=16384,
+                                  tri_neighbors=5))
+VI_BASELINE = 0.11  # EuRoC's stereo baseline
+
+
+class PoseRig:
+    """Extractor adapter of the stereo scenes: an "image" is (camera, R_cw,
+    t_cw), and the camera index picks the FakeExtractor."""
+
+    def __init__(self, *extractors):
+        self.extractors = extractors
+
+    def __call__(self, image):
+        c, R, t = image
+        return self.extractors[c](R, t)
+
+
+def stereo_images(R, t, R_rl, t_rl):
+    """The (left, right) "images" of a frame whose left camera has the
+    world->camera pose (R, t): the right camera's is T_rl o T_lw."""
+    R_r = (np.asarray(R_rl, np.float32) @ R).astype(np.float32)
+    t_r = (np.asarray(R_rl, np.float32) @ t + np.asarray(t_rl, np.float32)).astype(np.float32)
+    return (0, R, t), (1, R_r, t_r)
+
+
+def rgbd_spec(size):
+    """browse_spec with the close-depth threshold of tests/test_stereo.py's
+    RGB-D run (th_depth 25 m): every landmark of the cloud counts as close."""
+    sp = browse_spec(size)
+    sp["tracker"].update(th_depth=25.0)
+    return sp
+
+
+def stereo_spec(size):
+    """browse_spec on the rectified rig: a 0.1 m baseline, and close points
+    within STEREO_TH_DEPTH."""
+    sp = browse_spec(size)
+    sp["system"]["baseline"] = STEREO_BASELINE
+    sp["tracker"].update(th_depth=STEREO_TH_DEPTH)
+    return sp
+
+
+def depth_image(world, cam, R, t, frame, noise=DEPTH_NOISE, min_depth=0.3, max_depth=40.0):
+    """(H, W) float32 depth map in metres of `world` seen from the pinhole
+    `cam` at world->camera (R, t): every landmark in the extractor's depth
+    band splats its depth, times 1 + N(0, noise) drawn per landmark from a
+    generator seeded with `frame`, into the 3x3 pixels around its
+    projection; where splats overlap the nearest wins; 0 elsewhere."""
+    H, W = cam.height, cam.width
+    fx, fy, cx, cy = (float(v) for v in cam.params[:4])
+    pc = world.landmarks.astype(np.float64) @ np.asarray(R, np.float64).T + np.asarray(t)
+    z = pc[:, 2] * (1 + np.random.default_rng(frame).normal(0, noise, len(pc)))
+    ok = (pc[:, 2] > min_depth) & (pc[:, 2] < max_depth)
+    u = np.round(fx * pc[ok, 0] / pc[ok, 2] + cx).astype(np.int64)
+    v = np.round(fy * pc[ok, 1] / pc[ok, 2] + cy).astype(np.int64)
+    zz = z[ok]
+    img = np.full(H * W, np.inf)
+    for du in (-1, 0, 1):
+        for dv in (-1, 0, 1):
+            uu, vv = u + du, v + dv
+            inside = (uu >= 0) & (uu < W) & (vv >= 0) & (vv < H)
+            np.minimum.at(img, vv[inside] * W + uu[inside], zz[inside])
+    img[~np.isfinite(img)] = 0.0
+    return img.reshape(H, W).astype(np.float32)
+
+
+def rgbd_system(size, device=None, async_mapping=False):
+    """(SLAMSystem, FakeExtractor) of rgbd_spec(size): feed it
+    `track_rgbd((R, t), depth_image(ext.world, ext.cam, R, t, i), ts)`."""
+    sp = rgbd_spec(size)
+    sp["system"]["async_mapping"] = async_mapping
+    return _system(sp, SyntheticWorld.cloud(**sp["world"]), device)
+
+
+def _stereo_extractors(world, cam, ext_kw, device):
+    left = FakeExtractor(world, cam, **ext_kw, device=device)
+    right = FakeExtractor(world, cam, **dict(ext_kw, seed=ext_kw["seed"] + 1), device=device)
+    return left, right
+
+
+def stereo_system(size, device=None):
+    """(SLAMSystem, left FakeExtractor) of stereo_spec(size), whose extractor
+    is a PoseRig of the left and right cameras: feed it
+    `track_stereo(*stereo_images(R, t, eye(3), (-0.1, 0, 0)), ts)`."""
+    sp = stereo_spec(size)
+    cam = cameras.pinhole(**sp["cam"], device=device)
+    ext_l, ext_r = _stereo_extractors(SyntheticWorld.cloud(**sp["world"]), cam, sp["ext"],
+                                      device)
+    cfg = SystemConfig(**sp["system"], tracker=TrackerConfig(**sp["tracker"]),
+                       mapper=MapperConfig(**sp["mapper"]))
+    return SLAMSystem(cam, PoseRig(ext_l, ext_r), cfg, device=device), ext_l
+
+
+def rig_spec(size):
+    """Keyword arguments of the fisheye rig system at `size` (RIG_SMALL or
+    RIG_PRODUCTION): tests/test_rig.py:182's cameras, extrinsic, extractor
+    noise, depth band and tracker gates."""
+    s = size
+    return dict(
+        cam_l=RIG_CAM_L, cam_r=RIG_CAM_R, phi_lr=RIG_PHI_LR, t_lr=RIG_T_LR,
+        world=dict(seed=3, n_landmarks=s["n_landmarks"], extent=s["extent"],
+                   center=s["center"], desc_dim=s["desc_dim"]),
+        ext=dict(pad_to=s["pad_to"], noise_px=0.2, desc_noise=0.02,
+                 max_landmarks_per_frame=s["max_per_frame"], seed=7, max_depth=5.0,
+                 gdesc_dim=s["gdesc_dim"]),
+        system=dict(k_max=s["k_max"], m_max=s["m_max"], n_slots=s["pad_to"],
+                    desc_dim=s["desc_dim"], gdesc_dim=s["gdesc_dim"], loop_closing=False),
+        tracker=dict(local_mp_cap=s["local_mp_cap"],
+                     min_stereo_init_points=s["min_stereo_init_points"], th_depth=6.0),
+        mapper=dict(s["mapper"]), frames=s["frames"], step=s["step"])
+
+
+def rig_pose(i, step):
+    """World->camera (R, t) of the rig's left camera at frame i: facing +z,
+    sliding step = (dx, dy) metres a frame."""
+    c = np.array([step[0] * i, step[1] * i, 0.0])
+    return np.eye(3, dtype=np.float32), (-c).astype(np.float32)
+
+
+def rig_extrinsic():
+    """(R_lr, t_lr) of the rig, float32."""
+    from . import lie
+
+    R_lr = lie.so3_exp(torch.tensor(RIG_PHI_LR, dtype=torch.float32)).numpy()
+    return R_lr.astype(np.float32), np.asarray(RIG_T_LR, np.float32)
+
+
+def rig_system(size, device=None):
+    """(SLAMSystem, left FakeExtractor, (R_rl, t_rl)) of rig_spec(size): the
+    KB8 rig with cam_right and T_lr set. Feed it
+    `track_stereo(*stereo_images(*rig_pose(i, size["step"]), R_rl, t_rl), ts)`."""
+    sp = rig_spec(size)
+    cam_l = cameras.kb8(*sp["cam_l"], device=device)
+    cam_r = cameras.kb8(*sp["cam_r"], device=device)
+    R_lr, t_lr = rig_extrinsic()
+    world = SyntheticWorld.cloud(**sp["world"])
+    ext_l = FakeExtractor(world, cam_l, **sp["ext"], device=device)
+    ext_r = FakeExtractor(world, cam_r, **dict(sp["ext"], seed=8), device=device)
+    cfg = SystemConfig(**sp["system"], baseline=float(np.linalg.norm(t_lr)), cam_right=cam_r,
+                       T_lr=(R_lr, t_lr), tracker=TrackerConfig(**sp["tracker"]),
+                       mapper=MapperConfig(**sp["mapper"]))
+    sys_ = SLAMSystem(cam_l, PoseRig(ext_l, ext_r), cfg, device=device)
+    return sys_, ext_l, (R_lr.T, (-R_lr.T @ t_lr).astype(np.float32))
+
+
+def stereo_vi_spec(size):
+    """vi_spec with a rectified right camera VI_BASELINE along x and the
+    stereo browse's close-depth threshold."""
+    sp = vi_spec(size)
+    sp["system"]["baseline"] = VI_BASELINE
+    sp["tracker"]["th_depth"] = STEREO_TH_DEPTH
+    return sp
+
+
+def stereo_vi_system(size, device=None):
+    """(SLAMSystem, left FakeExtractor) of stereo_vi_spec(size),
+    stereo-inertial: feed it `track_stereo_inertial(*stereo_images(
+    *vi_frame_pose(t), eye(3), (-0.11, 0, 0)), t, synth_imu(t - dt, t, grav))`."""
+    from .geometry import imu
+
+    sp = stereo_vi_spec(size)
+    cam = cameras.pinhole(**sp["cam"], device=device)
+    ext_l, ext_r = _stereo_extractors(SyntheticWorld.cloud(**sp["world"]), cam, sp["ext"],
+                                      device)
+    cfg = SystemConfig(**sp["system"], tracker=TrackerConfig(**sp["tracker"]),
+                       mapper=MapperConfig(**sp["mapper"]), vi=VIConfig(**sp["vi"]))
+    return SLAMSystem(cam, PoseRig(ext_l, ext_r), cfg, imu_calib=imu.default_calib(**sp["imu"]),
+                      device=device), ext_l
+
+
+# ORB-SLAM3's Examples/RGB-D/TUM1.yaml camera (fr1 sequences), with the
+# HF-Net extractor keys of the EuRoC settings
+TUM1_CAM = dict(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989, width=640,
+                height=480)
+TUM_RGBD_SETTINGS = """%YAML:1.0
+File.version: "1.0"
+Camera.type: "PinHole"
+Camera1.fx: {fx}
+Camera1.fy: {fy}
+Camera1.cx: {cx}
+Camera1.cy: {cy}
+Camera1.k1: 0.262383
+Camera1.k2: -0.953104
+Camera1.p1: -0.005358
+Camera1.p2: 0.002628
+Camera1.k3: 1.163314
+Camera.width: {width}
+Camera.height: {height}
+Camera.fps: 30
+Camera.RGB: 1
+Stereo.ThDepth: 40.0
+Stereo.b: 0.07732
+RGBD.DepthMapFactor: 5000.0
+Extractor.type: "HFNetTPU"
+Extractor.nFeatures: {n_features}
+Extractor.nLevels: {n_levels}
+Extractor.scaleFactor: {scale_factor}
+Extractor.threshold: {threshold}
+loopClosing: 0
+"""
+TUM_DEPTH_FACTOR = 5000.0
+TUM_T0 = 1305031102.175304  # fr1/xyz's first rgb timestamp
+
+
+def tum_plane_depth(h, w):
+    """The synthetic sequence's depth in metres: a plane tilted along x,
+    1.75 m at the left edge to 2.25 m at the right."""
+    return np.broadcast_to(2.0 + 0.5 * (np.arange(w) / w - 0.5), (h, w)).astype(np.float64)
+
+
+def write_tum_rgbd_sequence(out_dir, n_frames):
+    """Write `n_frames` textured 640x480 frames (8-bit PNGs, the texture
+    panning 4 px a frame) and their depth (16-bit PNGs of tum_plane_depth at
+    factor 5000) in TUM RGB-D's layout under out_dir, with rgb.txt,
+    depth.txt (depth stamped 10 ms after its image, as the sensor's two
+    clocks) and a settings file out_dir/settings.yaml. Returns (sequence
+    path, settings path, rgb timestamps in seconds)."""
+    from .utils.datasets import write_png
+
+    H, W = TUM1_CAM["height"], TUM1_CAM["width"]
+    canvas = textured_image(np.random.default_rng(EUROC_TEXTURE_SEED), H,
+                            W + EUROC_STEP_PX * n_frames)
+    raw = np.round(tum_plane_depth(H, W) * TUM_DEPTH_FACTOR).astype(np.uint16)
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    rgb, dep, stamps = ["# color images"], ["# depth maps"], []
+    for i in range(n_frames):
+        ts = TUM_T0 + i / 30.0
+        o = EUROC_STEP_PX * i
+        write_png(os.path.join(out_dir, "rgb", f"{ts:.6f}.png"),
+                  np.round(canvas[:, o:o + W]).astype(np.uint8))
+        write_png(os.path.join(out_dir, "depth", f"{ts + 0.01:.6f}.png"), raw)
+        rgb.append(f"{ts:.6f} rgb/{ts:.6f}.png")
+        dep.append(f"{ts + 0.01:.6f} depth/{ts + 0.01:.6f}.png")
+        stamps.append(float(f"{ts:.6f}"))
+    for name, lines in (("rgb.txt", rgb), ("depth.txt", dep)):
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    settings = os.path.join(out_dir, "settings.yaml")
+    with open(settings, "w") as f:
+        f.write(TUM_RGBD_SETTINGS.format(**TUM1_CAM, **EUROC_HFNET))
+    return out_dir, settings, np.asarray(stamps)

@@ -12,8 +12,11 @@ correction propagation run here too, and on a visual-inertial map the
 inertial BAs: once the IMU is initialized the window BA is
 `local_inertial_ba` (LocalInertialBA), and `full_inertial_ba`
 (FullInertialBA) serves the staged IMU initialization and inertial loop
-closing. Out of this slice: the distributed solvers (ROADMAP.md Queue 1
-item 17) and the stereo rig's right-camera edges (item 16).
+closing. Observations with a keyframe depth (stereo, RGB-D) carry the
+depth row (weight bf / z^2) in every BA; on a stereo rig (`cfg.rig`, the
+right camera's extrinsic and intrinsics) the right bank's observations
+follow the left edges as ToBody edges, within ba_edge_cap. Out of this
+slice: the distributed solvers (ROADMAP.md Queue 1 item 17).
 
 Lock discipline (the async pipeline, slam/pipeline.py): each stage gathers
 its inputs under `self.lock` as copies, runs its device work without it, and
@@ -80,9 +83,6 @@ class LocalMapper:
         self.cam = cam.to(self.device)
         self.store = store
         self.cfg = cfg or MapperConfig()
-        if self.cfg.rig is not None:
-            raise NotImplementedError(
-                "stereo-rig right-camera BA edges are ROADMAP.md Queue 1 item 16")
         self.lock = NULL_LOCK
         self.vim = None  # slam.vi.VIManager on a visual-inertial system
         self.abort_ba = False  # mbAbortBA: stop between LM rounds, keep results
@@ -461,13 +461,51 @@ class LocalMapper:
         uv = np.zeros((E, 2), np.float32)
         inv_s2 = np.ones(E, np.float32)
         valid = np.zeros(E, bool)
+        z_meas = np.zeros(E, np.float32)
+        wz = np.zeros(E, np.float32)
         n_e = len(kf_e)
         kf_idx[:n_e] = kf_loc[kf_e]
         pt_idx[:n_e] = mp_loc[mp_e]
         uv[:n_e] = store.kf_xy[kf_e, slot_e]
         inv_s2[:n_e] = 1.0 / (1.2 ** (2.0 * store.kf_octave[kf_e, slot_e]))
         valid[:n_e] = True
-        return kf_idx, pt_idx, uv, inv_s2, valid
+        if self.cfg.bf > 0:
+            z = store.kf_depth[kf_e, slot_e]
+            z_meas[:n_e] = np.where(z > 0, z, 0.0)
+            wz[:n_e] = np.where(z > 0, self.cfg.bf / np.maximum(z, 1e-3) ** 2, 0.0)
+        return kf_idx, pt_idx, uv, inv_s2, valid, z_meas, wz
+
+    def _right_edges(self, kf_ids, mp_ids, n_e, kf_idx, pt_idx, uv, inv_s2, valid):
+        """Append the right bank's observations of the problem's points by
+        its keyframes after the n_e left edges, in place, as far as the edge
+        capacity allows (a warning counts the dropped ones). Returns cam_sel
+        and the (kf, slot) of the appended edges."""
+        store = self.store
+        E = len(valid)
+        cam_sel = np.zeros(E, np.float32)
+        rkf, rslot, rmp = store.right_observing_slots(mp_ids)
+        keep = np.isin(rkf, kf_ids) & np.isin(rmp, mp_ids)
+        rkf, rslot, rmp = rkf[keep], rslot[keep], rmp[keep]
+        n_r = min(len(rkf), E - n_e)
+        self.stats["right_edges"] = n_r
+        self.stats["right_edges_dropped"] = len(rkf) - n_r
+        if n_r < len(rkf):
+            from ..utils.log import warn
+
+            warn(f"local BA: {len(rkf) - n_r} right-camera edges over edge_cap dropped")
+        rkf, rslot, rmp = rkf[:n_r], rslot[:n_r], rmp[:n_r]
+        kf_loc = np.zeros(store.k_max, np.int64)
+        kf_loc[kf_ids] = np.arange(len(kf_ids))
+        mp_loc = np.zeros(store.m_max, np.int64)
+        mp_loc[mp_ids] = np.arange(len(mp_ids))
+        e = slice(n_e, n_e + n_r)
+        kf_idx[e] = kf_loc[rkf]
+        pt_idx[e] = mp_loc[rmp]
+        uv[e] = store.kf_xy_r[rkf, rslot]
+        inv_s2[e] = 1.0 / (1.2 ** (2.0 * store.kf_oct_r[rkf, rslot]))
+        valid[e] = True
+        cam_sel[e] = 1.0
+        return cam_sel, rkf, rslot
 
     def _detach_outliers(self, out_valid, kf_e, slot_e, mp_ids):
         """Erase observations classified as outliers; kill orphaned points."""
@@ -511,14 +549,23 @@ class LocalMapper:
             fixed[: len(kf_ids)] = [int(i) in fixed_ids for i in kf_ids]
             points = np.zeros((M, 3), np.float32)
             points[: len(mp_ids)] = store.mp_pos[mp_ids]
-            kf_idx, pt_idx, uv, inv_s2, valid = self._edge_arrays(
+            kf_idx, pt_idx, uv, inv_s2, valid, z_meas, wz = self._edge_arrays(
                 kf_ids, mp_ids, kf_e, slot_e, mp_e, E)
             n_e = len(kf_e)
+            rig = {}
+            rkf = rslot = np.empty(0, np.int64)
+            if cfg.rig is not None and store.has_right:
+                # right-camera (ToBody) edges after the left ones
+                cam_sel, rkf, rslot = self._right_edges(kf_ids, mp_ids, n_e, kf_idx, pt_idx,
+                                                        uv, inv_s2, valid)
+                rig = dict(cam_sel=self._t(cam_sel), rig_R=self._t(cfg.rig[0]),
+                           rig_t=self._t(cfg.rig[1]), params_r=self._t(cfg.rig[2]))
             prob = ba.BAProblem(
                 poses_R=self._t(poses_R), poses_t=self._t(poses_t),
                 fixed=self._t(fixed, torch.bool), points=self._t(points),
                 kf_idx=self._t(kf_idx, torch.int64), pt_idx=self._t(pt_idx, torch.int64),
-                uv=self._t(uv), inv_sigma2=self._t(inv_s2), valid=self._t(valid, torch.bool))
+                uv=self._t(uv), inv_sigma2=self._t(inv_s2), valid=self._t(valid, torch.bool),
+                z_meas=self._t(z_meas), wz=self._t(wz), **rig)
         out = ba.bundle_adjust(self.cam.kind, self.cam.params, prob, rounds=rounds,
                                should_abort=should_abort)
         R_new = out.poses_R.cpu().numpy()[: len(kf_ids)]
@@ -537,6 +584,9 @@ class LocalMapper:
             alive = store.mp_valid[mp_ids]
             store.mp_pos[mp_ids[alive]] = pts[alive]
             self._detach_outliers(out_valid[:n_e], kf_e, slot_e, mp_ids)
+            bad_r = ~out_valid[n_e:n_e + len(rkf)]
+            if bad_r.any():
+                store.kf_obs_r[rkf[bad_r], rslot[bad_r]] = -1
             store.mark_points_dirty(mp_ids)
             store.bump_change(dirty_points=False)
         return {"kf_ids": kf_ids, "mp_ids": mp_ids}
@@ -764,8 +814,8 @@ class LocalMapper:
             fix_pose_only[int(np.argmin(store.kf_timestamp[kf_ids]))] = True
         points = np.zeros((M, 3), np.float32)
         points[: len(mp_ids)] = store.mp_pos[mp_ids]
-        kf_idx, pt_idx, uv, inv_s2, valid = self._edge_arrays(kf_ids, mp_ids, kf_e, slot_e,
-                                                             mp_e, E)
+        kf_idx, pt_idx, uv, inv_s2, valid, z_meas, wz = self._edge_arrays(
+            kf_ids, mp_ids, kf_e, slot_e, mp_e, E)
         n_e = len(kf_e)
         # inertial links: consecutive chain pairs with both ends in the set
         li = np.zeros(K, np.int64)
@@ -783,7 +833,6 @@ class LocalMapper:
             return None  # no usable chain; the visual BA covers it
         empty = IMU.empty_preintegrated(device=self.device)
         pres.extend([empty] * (K - len(pres)))
-        z = np.zeros(E, np.float32)
         prob = vi_ba.VIBAProblem(
             R_wb=self._t(R_wb), p_wb=self._t(p_wb), v=self._t(v), bg=self._t(bg),
             ba=self._t(ba_), fixed=self._t(fixed, torch.bool),
@@ -791,7 +840,7 @@ class LocalMapper:
             Tbc_R=self._t(vim.calib.Tbc_R), Tbc_t=self._t(vim.calib.Tbc_t),
             kf_idx=self._t(kf_idx, torch.int64), pt_idx=self._t(pt_idx, torch.int64),
             uv=self._t(uv), inv_sigma2=self._t(inv_s2), valid=self._t(valid, torch.bool),
-            z_meas=self._t(z), wz=self._t(z), li=self._t(li, torch.int64),
+            z_meas=self._t(z_meas), wz=self._t(wz), li=self._t(li, torch.int64),
             lj=self._t(lj, torch.int64), pre=IMU.stack(pres),
             lvalid=self._t(lvalid, torch.bool), prior_g=self._t(float(prior_g)),
             prior_a=self._t(float(prior_a)))

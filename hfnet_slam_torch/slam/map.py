@@ -50,6 +50,12 @@ class MapStore:
         self.kf_bg = np.zeros((K, 3), np.float32)
         self.kf_ba = np.zeros((K, 3), np.float32)
         self.kf_prev = np.full(K, -1, np.int32)  # IMU chain (mPrevKF)
+        # stereo-rig right-camera observations (the reference's right
+        # keypoints with ToBody edges), allocated by enable_right_bank()
+        self.has_right = False
+        self.kf_xy_r = None     # (K,N,2)
+        self.kf_oct_r = None    # (K,N)
+        self.kf_obs_r = None    # (K,N) mp id or -1
         # map-level inertial flags (Map::isImuInitialized / VIBA1 / VIBA2)
         self.imu_initialized = False
         self.viba1 = False
@@ -110,6 +116,37 @@ class MapStore:
         self._kf_feat_dirty = np.zeros(K, bool)
         self._kf_obs_dirty = np.zeros(K, bool)
         self._kf_dirty_all = True
+
+    def enable_right_bank(self):
+        """Allocate the right-camera observation tables (stereo rigs)."""
+        if self.has_right:
+            return
+        K, N = self.k_max, self.n_slots
+        self.kf_xy_r = np.zeros((K, N, 2), np.float32)
+        self.kf_oct_r = np.zeros((K, N), np.int32)
+        self.kf_obs_r = np.full((K, N), -1, np.int32)
+        self.has_right = True
+
+    def set_right_observations(self, kf, slots, mp_ids, xy, octave):
+        """Record right-camera observations for keyframe `kf`. They do not
+        count toward mp_obs_count: culling follows the left bank."""
+        self.enable_right_bank()
+        slots = np.asarray(slots, int)
+        self.kf_obs_r[kf, slots] = np.asarray(mp_ids, np.int32)
+        self.kf_xy_r[kf, slots] = np.asarray(xy, np.float32)
+        self.kf_oct_r[kf, slots] = np.asarray(octave, np.int32)
+
+    def right_observing_slots(self, mp_ids):
+        """(kf, slot, mp) triples of the right bank for the given points
+        (edge building for the rig BA)."""
+        if not self.has_right:
+            return (np.empty(0, np.int64),) * 3
+        member = np.zeros(self.m_max, bool)
+        member[np.asarray(mp_ids, int)] = True
+        obs = self.kf_obs_r
+        sel = (obs >= 0) & self.kf_valid[:, None] & member[np.clip(obs, 0, self.m_max - 1)]
+        kf_e, slot_e = np.nonzero(sel)
+        return kf_e, slot_e, obs[kf_e, slot_e].astype(np.int64)
 
     def bump_change(self, dirty_points: bool = True):
         """Signal a geometry write-back. dirty_points=False when the writer
@@ -180,6 +217,10 @@ class MapStore:
             setattr(self, name,
                     self._padded(getattr(self, name), self.k_max, fill=-1))
         self.kf_obs = self._padded(self.kf_obs, self.k_max, fill=-1)
+        if self.has_right:
+            self.kf_xy_r = self._padded(self.kf_xy_r, self.k_max)
+            self.kf_oct_r = self._padded(self.kf_oct_r, self.k_max)
+            self.kf_obs_r = self._padded(self.kf_obs_r, self.k_max, fill=-1)
         covis = np.zeros((self.k_max, self.k_max), np.int32)
         covis[:old, :old] = self.covis
         self.covis = covis
@@ -291,6 +332,8 @@ class MapStore:
         np.subtract.at(self.mp_obs_count, obs[obs >= 0], 1)
         self.kf_obs[k] = -1
         self.mark_kf_obs_dirty(k)
+        if self.has_right:
+            self.kf_obs_r[k] = -1
         self.covis[k, :] = 0
         self.covis[:, k] = 0
         self.kf_parent[self.kf_parent == k] = self.kf_parent[k]
@@ -361,6 +404,8 @@ class MapStore:
         sel = np.isin(self.kf_obs, ids)
         self.mark_kf_obs_dirty(np.nonzero(sel.any(axis=1))[0])
         self.kf_obs[sel] = -1
+        if self.has_right:
+            self.kf_obs_r[np.isin(self.kf_obs_r, ids)] = -1
         self.mp_obs_count[ids] = 0
         self._free_mp.extend(int(i) for i in ids)
 

@@ -1,6 +1,6 @@
 """SLAM system facade: the public API of the port.
 
-Counterpart of hfnet_slam_tpu/slam/system.py for monocular SLAM: construction
+Counterpart of hfnet_slam_tpu/slam/system.py: construction
 wires the extractor, tracker, local mapper and (with the reference's default
 loop_closing=True) the loop closer around the atlas's active MapStore;
 `track_monocular(image, t)` / `track_features(feats, t)` are the per-frame
@@ -18,17 +18,31 @@ raises. Features it receives are moved to that device. With an `imu_calib`
 `track_monocular_inertial(image, t, imu)` and `track_features(feats, t,
 imu=rows)` take the (N,7) IMU rows covering (t_prev, t], a slam.vi.VIManager
 runs the staged IMU initialization, and the mapper and loop closer switch
-to their inertial solves once it has. Configurations outside this slice
-raise NotImplementedError naming their ROADMAP.md item.
+to their inertial solves once it has.
+
+Stereo and RGB-D: `track_rgbd(image, depth_image, t)` samples the depth
+map at the keypoints (ops/stereo.depth_at_keypoints, times
+cfg.depth_factor); `track_stereo(left, right, t)` associates the two
+images' features, along the rows of a rectified rig (`cfg.baseline`) or,
+with `cfg.cam_right` and `cfg.T_lr` set, through each fisheye camera's own
+model with triangulation, whose matched right keypoints become right-bank
+observations with ToBody edges in BA; `track_stereo_inertial` adds the IMU
+rows. The depth-edge weight base bf = fx * baseline (or the RGB-D virtual
+baseline) reaches the tracker and the mapper in every mode; a monocular
+frame carries no depth, so its edges carry no depth row. The multi-GPU mesh
+(`install_mesh`) is ROADMAP.md Queue 1 item 17 and raises.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .. import device as D
 from ..geometry import cameras
+from ..models.extractor import Features
+from ..ops import stereo as S
 from . import merging
 from .atlas import Atlas
 from .local_mapping import LocalMapper, MapperConfig
@@ -60,21 +74,15 @@ class SystemConfig:
     vi: VIConfig = dataclasses.field(default_factory=VIConfig)
 
 
-def _check_slice(cfg: SystemConfig):
-    if cfg.baseline > 0 or cfg.cam_right is not None or cfg.T_lr is not None:
-        raise NotImplementedError("stereo / RGB-D SLAM is ROADMAP.md Queue 1 item 16")
-
-
 class SLAMSystem:
-    """Monocular and monocular-inertial SLAM. `extractor(image) -> Features`
-    is injected: the HF-Net pyramid extractor of models/extractor.py
-    (`track_monocular` takes images), or the synthetic one of models/fake.py
-    (whose "image" is the ground-truth pose)."""
+    """Monocular, stereo and RGB-D SLAM, each with or without an IMU.
+    `extractor(image) -> Features` is injected: the HF-Net pyramid extractor
+    of models/extractor.py (the entry points take images), or the synthetic
+    one of models/fake.py (whose "image" is the ground-truth pose)."""
 
     def __init__(self, cam: cameras.Camera, extractor, cfg: SystemConfig = None,
                  imu_calib=None, device=None):
         self.cfg = cfg or SystemConfig()
-        _check_slice(self.cfg)
         self.device = D.resolve(device)
         self.imu_calib = imu_calib
         D.full_fp32()
@@ -86,6 +94,18 @@ class SLAMSystem:
         c.tracker.bf = bf
         c.mapper.bf = bf
         self.mapper = LocalMapper(self.cam, self.store, c.mapper, device=self.device)
+        self.cam_right = None
+        if c.cam_right is not None and c.T_lr is not None:
+            # fisheye rig: right keypoints become observations with ToBody
+            # edges in BA; the stored extrinsic is x_r = R_rl x_l + t_rl
+            if c.cam_right.kind != cam.kind:
+                raise ValueError("rig cameras must share the projection model kind")
+            self.cam_right = c.cam_right.to(self.device)
+            R_lr = np.asarray(c.T_lr[0], np.float32)
+            t_lr = np.asarray(c.T_lr[1], np.float32)
+            c.mapper.rig = (R_lr.T, -R_lr.T @ t_lr,
+                            self.cam_right.params.cpu().numpy())
+            self.store.enable_right_bank()
         self.loop_closer = (LoopCloser(self.cam, self.store, c.loop, mapper=self.mapper,
                                        device=self.device) if c.loop_closing else None)
         self.vi = (VIManager(imu_calib, self.store, c.vi, device=self.device)
@@ -127,11 +147,38 @@ class SLAMSystem:
         """Feed one frame. Returns (state, R_cw, t_cw); the pose may be None."""
         return self.track_features(self.extractor(image), timestamp)
 
+    def _stereo_depth(self, image_left, image_right):
+        """Extract both images and associate them: (left Features, per-slot
+        depth as numpy, the right frame for the right bank or None)."""
+        fl = self.extractor(image_left).to(self.device)
+        fr = self.extractor(image_right).to(self.device)
+        if self.cam_right is not None:
+            R_lr, t_lr = (torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+                          for x in self.cfg.T_lr)
+            depth, idx, _ = S.match_stereo_fisheye(
+                self.cam.kind, self.cam.params, self.cam_right.kind, self.cam_right.params,
+                fl.xy, fl.desc, fl.octave, fl.mask, fr.xy, fr.desc, fr.octave, fr.mask,
+                R_lr, t_lr)
+            fr_host = Features(*(x.cpu().numpy() for x in fr))
+            return fl, depth.cpu().numpy(), (fr_host, idx.cpu().numpy())
+        depth, _ = S.match_stereo(fl.xy, fl.desc, fl.octave, fl.mask, fr.xy, fr.desc,
+                                  fr.octave, fr.mask, fx=self.cam.fx, baseline=self.cfg.baseline)
+        return fl, depth.cpu().numpy(), None
+
     def track_stereo(self, image_left, image_right, timestamp: float):
-        raise NotImplementedError("stereo SLAM is ROADMAP.md Queue 1 item 16")
+        """Stereo frame: extract both images, associate them for depth (rows of
+        a rectified rig, or the fisheye rig's triangulation), then track."""
+        fl, depth, right = self._stereo_depth(image_left, image_right)
+        return self.track_features(fl, timestamp, depth=depth, right=right)
 
     def track_rgbd(self, image, depth_image, timestamp: float):
-        raise NotImplementedError("RGB-D SLAM is ROADMAP.md Queue 1 item 16")
+        """RGB-D frame: the registered depth map (raw units, times
+        cfg.depth_factor) sampled at the keypoints."""
+        feats = self.extractor(image).to(self.device)
+        dimg = torch.as_tensor(np.asarray(depth_image, np.float32), device=self.device) \
+            if not torch.is_tensor(depth_image) else depth_image.to(self.device, torch.float32)
+        depth = S.depth_at_keypoints(dimg, feats.xy, self.cfg.depth_factor)
+        return self.track_features(feats, timestamp, depth=depth.cpu().numpy())
 
     def track_monocular_inertial(self, image, timestamp: float, imu):
         """Mono-inertial frame: imu = (N,7) [ax ay az wx wy wz dt] rows
@@ -139,19 +186,25 @@ class SLAMSystem:
         return self.track_features(self.extractor(image), timestamp, imu=imu)
 
     def track_stereo_inertial(self, image_left, image_right, timestamp: float, imu):
-        raise NotImplementedError("stereo-inertial SLAM is ROADMAP.md Queue 1 item 16")
+        """Stereo-inertial frame: track_stereo's depth plus the (N,7) IMU rows.
+        As the reference's, it hands no right observations to the tracker."""
+        fl, depth, _ = self._stereo_depth(image_left, image_right)
+        return self.track_features(fl, timestamp, depth=depth, imu=imu)
 
     def install_mesh(self, mesh):
         raise NotImplementedError(
             "multi-GPU global BA and retrieval are ROADMAP.md Queue 1 item 17")
 
-    def track_features(self, feats, timestamp: float, imu=None):
+    def track_features(self, feats, timestamp: float, depth=None, imu=None, right=None):
         """Feed pre-extracted features (testing / offline pipelines), with the
-        frame's IMU rows on a visual-inertial system."""
+        frame's per-slot depth (numpy, 0 = none), its IMU rows on a
+        visual-inertial system, and on a fisheye rig the right frame's
+        (Features as numpy, left->right match) for the right bank."""
         feats = feats.to(self.device)
         if self.cam.dist is not None:
+            # depth was sampled at the raw pixel, where the sensor measured it
             feats = feats._replace(xy=self.cam.undistort(feats.xy))
-        out = self.tracker.track(feats, timestamp, imu=imu)
+        out = self.tracker.track(feats, timestamp, depth=depth, imu=imu, right=right)
         if out[0] == LOST:
             self._handle_lost()
         return out
@@ -196,6 +249,8 @@ class SLAMSystem:
             self._traj_mark = len(self.tracker.trajectory)
 
     def _rewire(self, store):
+        if self.cfg.mapper.rig is not None:
+            store.enable_right_bank()  # fresh maps of a rig keep their ToBody edges
         self.mapper.store = store
         self.mapper.recent_points = []
         self.mapper.kf_born = {}
@@ -221,8 +276,6 @@ class SLAMSystem:
             if not (0.90 <= sg <= 1.1):
                 return False  # "scale bad estimated. Abort merging"
             if active.viba1:
-                import torch
-
                 from .. import lie
 
                 phi = lie.so3_log(torch.as_tensor(np.asarray(Rg, np.float32))).numpy()

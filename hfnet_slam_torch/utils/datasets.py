@@ -7,12 +7,14 @@ LoadIMU helpers and evaluation/associate.py): `load_euroc` reads an ASL
 blocks, `associate` pairs two timestamped lists, `load_tum_rgbd` /
 `load_tum_vi` read the TUM layouts.
 
-Images decode with `read_png`, built on zlib: 8-bit grayscale or RGB, not
+Images decode with `read_png`, built on zlib: 8-bit grayscale or RGB and
+16-bit grayscale (big-endian samples, the depth maps of TUM-RGBD), not
 interlaced, any of the five row filters; any other PNG raises ValueError.
 RGB turns grayscale with the ITU-R 601-2 luma weights in the same integer
 arithmetic as PIL's convert("L"). `write_png` writes 8-bit grayscale or RGB
-(filter 0), as the synthetic sequences use it. The 16-bit depth images of
-TUM-RGBD are RGB-D input, ROADMAP.md Queue 1 item 16.
+and 16-bit grayscale (filter 0), as the synthetic sequences use it.
+`Sequence.depth(i)` is depth image i divided by the sequence's depth_factor,
+as the reference's reader returns it.
 """
 from __future__ import annotations
 
@@ -50,7 +52,8 @@ def _average_row(raw: bytes, prior, bpp: int) -> bytearray:
 
 
 def read_png(path) -> np.ndarray:
-    """(H, W) or (H, W, 3) uint8 of an 8-bit grayscale or RGB PNG."""
+    """(H, W) or (H, W, 3) uint8 of an 8-bit grayscale or RGB PNG; (H, W)
+    uint16 of a 16-bit grayscale one."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIG:
@@ -75,11 +78,12 @@ def read_png(path) -> np.ndarray:
     if ihdr is None or not idat:
         raise ValueError(f"{path}: no IHDR or IDAT chunk")
     w, h, depth, color, comp, filt, interlace = ihdr
-    if depth != 8 or color not in (0, 2) or comp != 0 or filt != 0 or interlace != 0:
+    if ((depth, color) not in ((8, 0), (8, 2), (16, 0)) or comp != 0 or filt != 0
+            or interlace != 0):
         raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, color type {color}, "
-                         f"interlace {interlace}); 8-bit grayscale or RGB, not interlaced, "
-                         "is supported")
-    bpp = 1 if color == 0 else 3
+                         f"interlace {interlace}); 8-bit grayscale or RGB and 16-bit "
+                         "grayscale, not interlaced, are supported")
+    bpp = 2 if depth == 16 else (1 if color == 0 else 3)  # bytes per pixel
     stride = w * bpp
     raw = zlib.decompress(b"".join(idat))
     if len(raw) != h * (stride + 1):
@@ -103,17 +107,23 @@ def read_png(path) -> np.ndarray:
             raise ValueError(f"{path}: row {y} has filter type {ftype}")
         out[y] = cur
         prior = out[y]
+    if depth == 16:
+        return out.view(">u2").reshape(h, w).astype(np.uint16)
     return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, 3)
 
 
 def write_png(path, img) -> None:
-    """Write an (H, W) or (H, W, 3) uint8 image as an 8-bit PNG (filter 0)."""
+    """Write an (H, W) or (H, W, 3) uint8 image as an 8-bit PNG, or an (H, W)
+    uint16 one as a 16-bit grayscale PNG (filter 0)."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(f"write_png: want (H, W) or (H, W, 3) uint8, got {img.shape} "
-                         f"{img.dtype}")
+    wide = img.dtype == np.uint16 and img.ndim == 2
+    if not wide and (img.dtype != np.uint8 or img.ndim not in (2, 3)
+                     or (img.ndim == 3 and img.shape[2] != 3)):
+        raise ValueError(f"write_png: want (H, W) or (H, W, 3) uint8 or (H, W) uint16, got "
+                         f"{img.shape} {img.dtype}")
     h, w = img.shape[:2]
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)], 1)
+    data = img.astype(">u2").view(np.uint8) if wide else img
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), data.reshape(h, -1)], 1)
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
@@ -121,7 +131,8 @@ def write_png(path, img) -> None:
 
     color = 0 if img.ndim == 2 else 2
     with open(path, "wb") as f:
-        f.write(_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+        f.write(_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16 if wide else 8,
+                                                      color, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
@@ -156,8 +167,8 @@ class Sequence:
         return load_image_gray(self.image_paths[i])
 
     def depth(self, i) -> np.ndarray:
-        raise NotImplementedError(
-            "16-bit depth images (RGB-D SLAM) are ROADMAP.md Queue 1 item 16")
+        """Depth frame i as (H, W) float32: the raw image / depth_factor."""
+        return read_png(self.depth_paths[i]).astype(np.float32) / self.depth_factor
 
     def imu_between(self, t0: float, t1: float) -> np.ndarray:
         """IMU rows with t in (t0, t1] as (N,7) [ax ay az wx wy wz dt]

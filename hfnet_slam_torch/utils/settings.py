@@ -14,9 +14,10 @@ it needs no YAML package:
 Anything else (nested mappings, block sequences, anchors, other tags) raises
 ValueError naming the line.
 
-`Settings.make_camera()` and `make_system_config()` turn a Settings into the
-port's camera and SystemConfig. The second camera of a stereo rig and the IMU
-calibration are ROADMAP.md Queue 1 items 16 and 15 and raise.
+`Settings.make_camera()`, `make_camera_right()`, `make_imu_calib()` and
+`make_system_config()` turn a Settings into the port's cameras, IMU
+calibration and SystemConfig; the sensor (`monocular`, `stereo`, `rgbd` and
+their `imu-` variants) is recorded as given.
 """
 from __future__ import annotations
 
@@ -309,8 +310,24 @@ class Settings:
         raise ValueError(f"unknown camera type {self.camera_type}")
 
     def make_camera_right(self, device=None):
-        raise NotImplementedError(
-            "the second camera of a stereo rig is ROADMAP.md Queue 1 item 16")
+        """The second camera of an unrectified stereo rig (Camera2.*) on
+        `device`, or None: with Stereo.T_c1_c2 it drives the fisheye stereo
+        matcher and the right bank."""
+        if not self.cam2:
+            return None
+        from ..geometry import cameras
+
+        w = self.new_width or self.width
+        h = self.new_height or self.height
+        sx = w / self.width if self.width else 1.0
+        sy = h / self.height if self.height else 1.0
+        fx, fy, cx, cy = self.cam2
+        if self.camera_type == "KannalaBrandt8":
+            k = (list(self.dist2) + [0.0] * 4)[:4]
+            return cameras.kb8(fx * sx, fy * sy, cx * sx, cy * sy, *k, w, h, device=device)
+        dist = self.dist2 if any(self.dist2) else None
+        return cameras.pinhole(fx * sx, fy * sy, cx * sx, cy * sy, w, h, dist=dist,
+                               device=device)
 
     def make_imu_calib(self):
         """The IMU calibration of the IMU.* keys: noise densities in discrete
@@ -326,13 +343,14 @@ class Settings:
                             sigma_aw=float(np.float32(self.acc_walk / sf)),
                             Tbc_R=Tbc[:3, :3].copy(), Tbc_t=Tbc[:3, 3].copy())
 
-    def make_system_config(self, **overrides):
+    def make_system_config(self, device=None, **overrides):
         """The SystemConfig the settings describe, with `overrides` set on
-        it (e.g. async_mapping=True). A stereo rig (item 16) raises."""
+        it (e.g. async_mapping=True). An unrectified rig (Camera2 and
+        Stereo.T_c1_c2) gets its right camera on `device` and the
+        right-in-left extrinsic, and the baseline |t_c1_c2| when Stereo.b
+        is absent."""
         from ..slam.system import SystemConfig
 
-        if self.cam2 and self.T_c1_c2 is not None:
-            self.make_camera_right()
         cfg = SystemConfig(
             loop_closing=self.loop_closing,
             baseline=self.baseline,
@@ -344,6 +362,12 @@ class Settings:
         # between keyframes
         if self.fps > 0:
             cfg.tracker.max_frames_between_kf = int(round(self.fps))
+        if self.cam2 and self.T_c1_c2 is not None:
+            cfg.cam_right = self.make_camera_right(device)
+            T = np.asarray(self.T_c1_c2, np.float64)
+            cfg.T_lr = (T[:3, :3].astype(np.float32), T[:3, 3].astype(np.float32))
+            if cfg.baseline <= 0:
+                cfg.baseline = float(np.linalg.norm(T[:3, 3]))
         for k, v in overrides.items():
             setattr(cfg, k, v)
         return cfg

@@ -2,7 +2,9 @@
 (from one thread and from two at once, as the async pipeline calls it), the
 loop-closing and relocalization paths that launch it, the HF-Net
 extractor and its prefetch pipeline on the card, and the visual-inertial
-solvers on the card against the same code on the CPU.
+solvers on the card against the same code on the CPU, and the stereo /
+RGB-D path (the rectified stereo association, the depth lookup, the rig BA
+with right-camera edges) on the card against the CPU.
 
 These tests need an NVIDIA card (marker `cuda`) and skip without one. The
 file imports neither jax nor hfnet_slam_tpu, so it runs on the GPU machine,
@@ -15,7 +17,10 @@ Tolerances: idx and gated match indices exactly; best and second 1e-5
 chip_smoke.py holds the kernel to the same rules at the slice's shapes.
 Visual-inertial: preintegration and the per-frame VI solve within 1e-4 of
 the CPU, inlier masks exactly; vi_ba_iterate's masks exactly and its states
-within 1e-3 (index_add_ accumulates with atomics on the card)."""
+within 1e-3 (index_add_ accumulates with atomics on the card). Stereo: the
+association's matched columns exactly and its depths within 1e-5 relative;
+the depth lookup exactly; the rig BA's edge validity exactly and its poses
+and points within 1e-3."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -478,3 +483,114 @@ def test_vi_ba_iterate_on_the_card_matches_the_cpu(cuda):
     assert int((~out_cpu.valid[:20]).sum()) >= 18
     for k in ("R_wb", "p_wb", "v", "bg", "ba", "points"):
         _close(getattr(out_gpu, k), getattr(out_cpu, k), 1e-3, k)
+
+
+def _rectified_rig(n=512, d=64, seed=0):
+    """tests/test_stereo.py's rectified rig at a larger size: right
+    keypoints are left ones shifted by the disparity fx*b/z, with row noise,
+    octaves 0-3 and a few masked slots."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(1.0, 20.0, n)
+    uL, v = rng.uniform(80, 600, n), rng.uniform(20, 460, n)
+    desc = rng.standard_normal((n, d))
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    octv = rng.integers(0, 4, n)
+    mask = rng.uniform(size=n) > 0.05
+    xyL = np.stack([uL, v], 1)
+    xyR = np.stack([uL - 450.0 * 0.1 / z, v + rng.normal(0, 0.3, n)], 1)
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32)  # noqa: E731
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32)  # noqa: E731
+    return (f32(xyL), f32(desc), i32(octv), torch.tensor(mask), f32(xyR), f32(desc),
+            i32(octv), torch.tensor(mask))
+
+
+def test_match_stereo_on_the_card_matches_the_cpu(cuda):
+    from hfnet_slam_torch import device as D
+    from hfnet_slam_torch.ops import stereo
+
+    D.full_fp32()
+    args = _rectified_rig()
+    d_cpu, u_cpu = stereo.match_stereo(*args, fx=450.0, baseline=0.1)
+    d_gpu, u_gpu = stereo.match_stereo(*(x.to(cuda) for x in args), fx=450.0, baseline=0.1)
+    assert d_gpu.device.type == "cuda"
+    assert torch.equal(u_gpu.cpu(), u_cpu) and int((d_cpu > 0).sum()) > 400
+    _close(d_gpu, d_cpu, 1e-5, "depth")
+
+
+def test_depth_at_keypoints_on_a_cuda_depth_image(cuda):
+    import numpy as np
+
+    from hfnet_slam_torch.ops import stereo
+
+    rng = np.random.default_rng(1)
+    img = torch.tensor(rng.uniform(500, 20000, (480, 640)), dtype=torch.float32)
+    img[100:110, 200:210] = 0.0
+    img[5, 5] = float("nan")
+    xy = torch.tensor(np.concatenate([rng.uniform(-3, 645, (1000, 2)),
+                                      [[5.0, 5.0], [204.5, 104.5], [2.5, 3.5]]]),
+                      dtype=torch.float32)
+    want = stereo.depth_at_keypoints(img, xy, 1.0 / 5000.0)
+    got = stereo.depth_at_keypoints(img.to(cuda), xy.to(cuda), 1.0 / 5000.0)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    assert float(want[-3]) == 0.0 and float(want[-2]) == 0.0
+
+
+def test_track_rgbd_with_device_none_raises_without_a_card(cuda, monkeypatch):
+    from hfnet_slam_torch.scenes import SMALL, rgbd_system, rig_system, RIG_SMALL
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: rgbd_system(SMALL), lambda: rig_system(RIG_SMALL)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+def test_rig_bundle_adjust_on_the_card_matches_the_cpu(cuda):
+    """tests/test_rig.py's problem: two keyframes, 120 points, 30% of them
+    seen only by the right cameras (ToBody edges)."""
+    import numpy as np
+
+    from hfnet_slam_torch import lie
+    from hfnet_slam_torch.geometry import cameras
+    from hfnet_slam_torch.optim import ba
+
+    cam_l = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
+    cam_r = cameras.pinhole(455.0, 452.0, 318.0, 242.0, 640, 480, device="cpu")
+    R_rl = lie.so3_exp(torch.tensor([0.0, -0.03, 0.005]))
+    t_rl = torch.tensor([-0.11, 0.002, 0.001])
+    rng = np.random.default_rng(0)
+    m = 120
+    pts = torch.tensor(rng.uniform(-3, 3, (m, 3)) + [0, 0, 8.0], dtype=torch.float32)
+    R_gt = torch.stack([torch.eye(3), lie.so3_exp(torch.tensor([0.02, 0.25, -0.01]))])
+    t_gt = torch.tensor([[0.0, 0.0, 0.0], [-1.2, 0.05, 0.1]])
+    kf, pt, uv, sel = [], [], [], []
+    for k in range(2):
+        pc = pts @ R_gt[k].T + t_gt[k]
+        uv_l, uv_r = cam_l.project(pc), cam_r.project(pc @ R_rl.T + t_rl)
+        for j in range(m):
+            if j >= 36:
+                kf.append(k), pt.append(j), uv.append(uv_l[j]), sel.append(0.0)
+            kf.append(k), pt.append(j), uv.append(uv_r[j]), sel.append(1.0)
+    E = len(kf)
+    xi = torch.tensor(rng.normal(0, 0.01, (2, 6)), dtype=torch.float32)
+    xi[0] = 0.0
+    R0, t0 = lie.se3_retract(R_gt, t_gt, xi)
+    prob = ba.BAProblem(
+        poses_R=R0, poses_t=t0, fixed=torch.tensor([True, False]),
+        points=pts + torch.tensor(rng.normal(0, 0.05, (m, 3)), dtype=torch.float32),
+        kf_idx=torch.tensor(kf), pt_idx=torch.tensor(pt), uv=torch.stack(uv),
+        inv_sigma2=torch.ones(E), valid=torch.ones(E, dtype=torch.bool),
+        z_meas=torch.zeros(E), wz=torch.zeros(E), cam_sel=torch.tensor(sel), rig_R=R_rl,
+        rig_t=t_rl, params_r=cam_r.params)
+    rounds = ((5, True), (15, False))
+    out_cpu = ba.bundle_adjust(cam_l.kind, cam_l.params, prob, rounds=rounds)
+    out_gpu = ba.bundle_adjust(cam_l.kind, cam_l.params.to(cuda),
+                               ba.BAProblem(*(x.to(cuda) for x in prob)), rounds=rounds)
+    assert out_gpu.points.device.type == "cuda"
+    assert torch.equal(out_gpu.valid.cpu(), out_cpu.valid)
+    for k in ("poses_R", "poses_t", "points"):
+        _close(getattr(out_gpu, k), getattr(out_cpu, k), 1e-3, k)
+    err = (out_cpu.points - pts).norm(dim=1)[:36]
+    assert float(err.max()) < 2e-2  # the right-only points converge
+

@@ -80,6 +80,8 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
     from hfnet_slam_torch.geometry.imu import default_calib
     from hfnet_slam_torch.scenes import VI_SMALL, vi_system
     from hfnet_slam_torch.slam.vi import VIManager
+    from hfnet_slam_torch import scenes
+    from hfnet_slam_torch.examples import run_tum_rgbd
 
     cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
     store = MapStore(8, 64, 16, 8, 8)
@@ -106,7 +108,12 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
                  lambda: VIManager(default_calib(), store),
                  lambda: vi_system(VI_SMALL),
                  lambda: run_euroc_inertial.main(["unused_dir", "--config", "unused.yaml"]),
-                 lambda: run_tum_vi.main(["unused_dir", "--config", "unused.yaml"])):
+                 lambda: run_tum_vi.main(["unused_dir", "--config", "unused.yaml"]),
+                 lambda: run_tum_rgbd.main(["unused_dir", "--config", "unused.yaml"]),
+                 lambda: scenes.rgbd_system(scenes.SMALL),
+                 lambda: scenes.stereo_system(scenes.SMALL),
+                 lambda: scenes.rig_system(scenes.RIG_SMALL),
+                 lambda: scenes.stereo_vi_system(VI_SMALL)):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -120,9 +127,9 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
     ("baseline", 0.1, "item 16"),
 ])
 def test_out_of_slice_configs_raise(field, value, item):
-    """Loop closing (item 14) and the async pipeline (item 14b) are in the
-    port now: such systems construct on the CPU, wired as the reference
-    wires them. The stereo rig (item 16) still raises, naming its item."""
+    """Loop closing (item 14), the async pipeline (item 14b) and the stereo
+    rig (item 16) are in the port now: such systems construct on the CPU,
+    wired as the reference wires them."""
     from hfnet_slam_torch.geometry import cameras
     from hfnet_slam_torch.slam.loop_closing import LoopCloser
     from hfnet_slam_torch.slam.system import SLAMSystem, SystemConfig
@@ -132,8 +139,15 @@ def test_out_of_slice_configs_raise(field, value, item):
     setattr(cfg, field, value)
     cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
     if field == "baseline":
-        with pytest.raises(NotImplementedError, match=item):
-            SLAMSystem(cam, None, cfg, device="cpu")
+        sys_ = SLAMSystem(cam, None, cfg, device="cpu")
+        # bf = fx * baseline reaches the tracker and the mapper; no rig
+        assert sys_.tracker.cfg.bf == sys_.mapper.cfg.bf == pytest.approx(450.0 * value)
+        assert sys_.mapper.cfg.rig is None and not sys_.store.has_right
+        cfg.cam_right = cameras.kb8(190.0, 190.0, 254.0, 256.0, 0, 0, 0, 0, 512, 512,
+                                    device="cpu")
+        cfg.T_lr = (np.eye(3, dtype=np.float32), np.array([0.11, 0, 0], np.float32))
+        with pytest.raises(ValueError, match="projection model"):
+            SLAMSystem(cam, None, cfg, device="cpu")  # the rig's kinds must agree
         return
     if field == "loop_closing":
         sys_ = SLAMSystem(cam, None, cfg, device="cpu")
@@ -169,10 +183,14 @@ def test_imu_and_stereo_entry_points_raise():
     # calibration ignores IMU rows, as the reference's does
     st, _, _ = sys_t.track_features(ext(*browse_pose(0)), 0.0, imu=np.zeros((3, 7), np.float32))
     assert st == 0 and sys_t.tracker.vi is None and sys_t.tracker._imu_since_kf == []
-    with pytest.raises(NotImplementedError, match="item 16"):
-        sys_t.track_stereo(None, None, 0.0)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        sys_t.track_stereo_inertial(None, None, 0.0, np.zeros((1, 7)))
+    # stereo and RGB-D are ported (item 16): a mono system's extractor fed
+    # two "images" associates them along the rows (baseline 0: no depth)
+    R, t = browse_pose(0)
+    sys_s, _ = build("torch", device="cpu")
+    st, _, _ = sys_s.track_stereo((R, t), (R, t), 0.0)
+    assert st == 0 and sys_s.tracker.state == 0  # no close depth: no map yet
+    st, _, _ = sys_s.track_rgbd((R, t), np.full((480, 640), 4.0, np.float32), 0.05)
+    assert st == 1 and int(sys_s.store.kf_valid.sum()) == 1  # a metric map at once
     with pytest.raises(NotImplementedError, match="item 17"):
         sys_t.install_mesh(None)
     # relocalization is ported: on an empty map it finds no candidate

@@ -123,8 +123,9 @@ def test_make_camera_and_system_config_equal_the_reference(tmp_path):
     for f in ("sigma_g", "sigma_a", "sigma_gw", "sigma_aw", "Tbc_R", "Tbc_t"):
         np.testing.assert_array_equal(np.asarray(getattr(it, f), np.float32),
                                       np.asarray(getattr(ij, f), np.float32))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t.make_camera_right()
+    # a monocular file has no second camera, in either package (item 16)
+    assert t.make_camera_right("cpu") is None and j.make_camera_right() is None
+    assert gt.cam_right is None and gt.T_lr is None
 
 
 # ---------------------------------------------------------------------------
@@ -132,10 +133,14 @@ def test_make_camera_and_system_config_equal_the_reference(tmp_path):
 # ---------------------------------------------------------------------------
 
 def _encode(img, ftype, interlace=0):
-    """An 8-bit PNG of img with every row under filter `ftype` (0-4)."""
+    """A PNG of img with every row under filter `ftype` (0-4): 8-bit
+    grayscale or RGB of uint8, 16-bit grayscale (big-endian) of uint16. The
+    filters work on bytes, bpp bytes a pixel."""
     h, w = img.shape[:2]
-    bpp = 1 if img.ndim == 2 else 3
-    rows = img.reshape(h, w * bpp).astype(np.int64)
+    wide = img.dtype == np.uint16
+    bpp = 2 if wide else (1 if img.ndim == 2 else 3)
+    data = img.astype(">u2").view(np.uint8) if wide else img
+    rows = data.reshape(h, w * bpp).astype(np.int64)
     out, prior = [], np.zeros(w * bpp, np.int64)
     for y in range(h):
         x = rows[y]
@@ -160,7 +165,8 @@ def _encode(img, ftype, interlace=0):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(
             ">I", zlib.crc32(kind + body))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, interlace)
+    ihdr = struct.pack(">IIBBBBB", w, h, 16 if wide else 8, 2 if bpp == 3 else 0, 0, 0,
+                       interlace)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(np.concatenate(out).tobytes()))
             + chunk(b"IEND", b""))
@@ -206,7 +212,15 @@ def test_png_reader_raises_on_other_pngs(tmp_path, mode):
 
     p = str(tmp_path / "x.png")
     if mode == "I;16":
-        Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 900).save(p)
+        # 16-bit grayscale (TUM-RGBD's depth maps) reads as Pillow reads it;
+        # 16-bit RGB raises
+        img = np.arange(64, dtype=np.uint16).reshape(8, 8) * 900
+        Image.fromarray(img).save(p)
+        np.testing.assert_array_equal(read_png(p), np.asarray(Image.open(p)))
+        raw = bytearray(_encode(np.zeros((8, 48), np.uint8), 0))
+        raw[16:29] = struct.pack(">IIBBBBB", 8, 8, 16, 2, 0, 0, 0)
+        raw[29:33] = struct.pack(">I", zlib.crc32(bytes(raw[12:29])))
+        open(p, "wb").write(bytes(raw))
     elif mode == "P":
         Image.fromarray(np.zeros((8, 8), np.uint8)).convert("P").save(p)
     else:  # an Adam7 header
@@ -246,8 +260,14 @@ def test_load_euroc_imu_between_and_associate_equal_the_reference(tmp_path):
     rj, rt = JD.load_tum_rgbd(str(d)), TD.load_tum_rgbd(str(d))
     assert (rt.image_paths, rt.depth_paths) == (rj.image_paths, rj.depth_paths)
     np.testing.assert_array_equal(rt.timestamps, rj.timestamps)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        rt.depth(0)
+    # the 16-bit depth maps, divided by the depth factor (item 16)
+    (d / "depth").mkdir()
+    from PIL import Image
+
+    Image.fromarray(np.arange(48, dtype=np.uint16).reshape(6, 8) * 1250).save(
+        str(d / "depth" / "1.png"))
+    np.testing.assert_array_equal(rt.depth(0), rj.depth(0))
+    assert rt.depth(0).dtype == np.float32 and rt.depth(0)[1, 0] == 8 * 1250 / 5000.0
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@
     line per tracked frame;
   * the IMU file matches the scene's exact IMU and load_euroc reads it the
     way the reference's does;
-  * run_tum_vi's --stereo names ROADMAP.md Queue 1 item 16, and
-    track_stereo_inertial raises the same.
+  * run_tum_vi's --stereo (ROADMAP.md Queue 1 item 16) on a 3-frame stereo
+    copy of that sequence (cam1 = cam0, a Camera2 block and Stereo.T_c1_c2)
+    drives track_stereo_inertial with --imu and track_stereo without.
 """
 import numpy as np
 import pytest
@@ -88,16 +89,35 @@ def test_run_euroc_inertial_on_a_synthetic_sequence_on_the_cpu(tmp_path, capsys)
     timings.reset()
 
 
-def test_stereo_inertial_is_item_16(tmp_path):
-    from hfnet_slam_torch.examples import run_tum_vi
-    from hfnet_slam_torch.geometry import cameras
-    from hfnet_slam_torch.geometry.imu import default_calib
-    from hfnet_slam_torch.slam.system import SLAMSystem, SystemConfig
+def test_stereo_inertial_is_item_16(tmp_path, capsys, monkeypatch):
+    import shutil
 
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_tum_vi.main(["unused", "--config", "unused.yaml", "--stereo", "--device", "cpu"])
-    cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
-    sys_ = SLAMSystem(cam, None, SystemConfig(loop_closing=False), imu_calib=default_calib(),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        sys_.track_stereo_inertial(None, None, 0.0, np.zeros((0, 7), np.float32))
+    from hfnet_slam_torch.examples import run_tum_vi
+    from hfnet_slam_torch.slam.system import SLAMSystem
+
+    mav0, cfg, _ = write_euroc_inertial_sequence(str(tmp_path), 3)
+    shutil.copytree(f"{mav0}/cam0", f"{mav0}/cam1")
+    with open(cfg) as f:
+        text = f.read()
+    rig = ["Camera2.fx: 458.654", "Camera2.fy: 457.296", "Camera2.cx: 367.215",
+           "Camera2.cy: 248.375", "Stereo.T_c1_c2: !!opencv-matrix", "   rows: 4",
+           "   cols: 4", "   dt: f", "   data: [1.0, 0.0, 0.0, 0.11, 0.0, 1.0, 0.0, 0.0,",
+           "          0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0]"]
+    with open(cfg, "w") as f:
+        f.write(text + "\n".join(rig) + "\n")
+    calls = []
+    for name in ("track_stereo", "track_stereo_inertial"):
+        real = getattr(SLAMSystem, name)
+
+        def spy(self, *a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(self, *a, **k)
+
+        monkeypatch.setattr(SLAMSystem, name, spy)
+    for extra in (["--imu"], []):
+        sys_ = run_tum_vi.main([mav0, "--config", cfg, "--stereo", "--device", "cpu",
+                                "--out", str(tmp_path / "t.txt"), *extra])
+        assert sys_.cam_right is not None and sys_.store.has_right
+        assert (sys_.vi is not None) == bool(extra)
+    assert calls == ["track_stereo_inertial"] * 3 + ["track_stereo"] * 3
+    assert "stereo + IMU" in capsys.readouterr().out
