@@ -94,22 +94,49 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      right-camera edges in every local BA (their count and any dropped at
      the edge cap);
  15. stereo-inertial: the VI scene with a rectified right camera 0.11 m
-     away, 60 frames at 10 Hz through track_stereo_inertial: IMU stage >= 1,
-     metric ATE <= 0.2 m and <= 5% of the path, VI frame p50 / p99;
+     away, its first 40 of 60 frames at 10 Hz through
+     track_stereo_inertial: IMU stage >= 1, metric ATE <= 0.2 m and <= 5%
+     of the path, VI frame p50 / p99;
  16. TUM RGB-D runner: examples/run_tum_rgbd on a 40-frame synthetic
      sequence (HF-Net at full width, random weights from seed 0): one TUM
      line per tracked frame, the first keyframe's median depth within 2% of
-     the written depth, extraction and frame p50.
+     the written depth, extraction and frame p50;
+ 17. CNN in the loop: bench.py's _cnn_metrics scenario
+     (scenes.cnn_system(CNN_PRODUCTION)): HF-Net from the port's seed-0
+     weights fine-tuned on the card for 250 steps on a CylinderWorld's exact
+     correspondences, then 120 rendered 640x480 RGB-D frames extracted one
+     ahead (pipeline_frames) and tracked with async mapping: bench.py's keys
+     (cnn_train_s, cnn_e2e_fps, cnn_tracked_frac, cnn_lost, cnn_kf_count,
+     cnn_inliers_p50, ate_cnn_m beside the reference's 0.7836 m, cnn_path_m),
+     one train step's CUDA-event ms with its forward / backward / Adam split,
+     its kernels by torch.profiler and its float32 bound; passes with no
+     frame lost, >= 90% tracked, >= 3 keyframes, ATE < 0.35 x the path and
+     the last loss < 0.6 x the first. Then frames 0 and 4 through the gated
+     mutual matcher on the trained and on the seed-0 descriptors: the share
+     of matches within 3 px of the true correspondence, and row_top2 held
+     exactly to its plain version on the trained ones;
+ 18. mesh: phase 5's final map solved by global BA three ways on copies of
+     it: the single solver sized to the map (the port's earlier route),
+     the distributed Schur solver on the one-shard default mesh (the
+     reference's route past the caps), and on a 4-shard mesh on the card:
+     cost over the map's edges, iterations and ms each; passes if the
+     distributed route costs no more than 1.001 x the single solver and
+     counts dist_gba, and the 1- and 4-shard routes' camera centres agree
+     within 2e-3 m (tests/test_torch_parallel.py's TOL_MESH). Then
+     install_mesh on a 4-shard mesh and one retrieval against the unmeshed
+     scan: equal scores and candidates. NCCL across cards is not checked
+     on one card.
 Phases 5, 6, 8 and 9 keep the inputs of their first loop-association,
 relocalization or matcher calls and, after the phase, hold the kernel against
 its plain version on them (matched indices that differ, and by how much in
 float64). The kernel's main-path launch counts are zeroed just before each
-of phases 4-16's paths and read just after. The line before the last is one JSON
+of phases 4-18's paths and read just after. The line before the last is one JSON
 object describing every kernel; the last line is {"ok": true, "device":
 {...}}. Needs one CUDA card and no network. Without a card, or without the
 repository beside it, it exits non-zero before printing a result.
-`--only kernel` runs phases 1-3, `--only vi` phases 1-3, 10 and 11, and
-`--only stereo` phases 1-3 and 12-16; none prints the result lines.
+`--only kernel` runs phases 1-3, `--only vi` phases 1-3, 10 and 11,
+`--only stereo` phases 1-3 and 12-16, `--only cnn` phases 1-3 and 17, and
+`--only mesh` phases 1-3, 5 and 18; none prints the result lines.
 """
 from __future__ import annotations
 
@@ -135,11 +162,14 @@ EXTRACT_MIN_SHARED = 0.99
 EXTRACT_TOL_XY = 1e-3
 EXTRACT_TOL_DESC = 1e-4
 SHIFT = (16, 8)  # px, (x, y): the second frame of the extraction phase
-# depth cuts that keep phases 4-16 inside the time limit: phase 8 drives the
+# depth cuts that keep phases 4-18 inside the time limit: phase 8 drives the
 # circuit's first 180 of 330 frames (phase 5 corrects at frames 126 and 152),
-# phase 11 the blackout plan's first 80 of 90 frames (recovered from frame 70)
+# phase 11 the blackout plan's first 80 of 90 frames (recovered from frame
+# 70), phase 15 the stereo-inertial run's first 40 of 60 frames (the IMU
+# initialized at 2 s, VIBA1 at 3.5 s)
 ASYNC_LOOP_FRAMES = 180
 VI_BLACKOUT_FRAMES = 80
+STEREO_VI_FRAMES = 40
 TIMED_SHAPES = [(1024, 1024, 256), (1024, 2048, 256), (2048, 1024, 256), (1024, 4096, 256),
                 (4096, 1024, 256), (1024, 8192, 256)]
 
@@ -700,7 +730,7 @@ def phase_loop(torch, smi):
     for shape in (f"{N},{win},{D}", f"{win},{N},{D}"):
         check(by_shape.get(shape, 0) >= 1, f"row_top2 never launched at ({shape})")
     rech = recheck(torch, "loop association", loop_calls.first)
-    return launches, by_shape, rech, res
+    return launches, by_shape, rech, res, sys_
 
 
 def phase_reloc(torch, smi):
@@ -1591,7 +1621,7 @@ def phase_rig(torch, smi):
 
 def phase_stereo_vi(torch, smi):
     """Phase 15: the VI scene at production widths with a rectified right
-    camera 0.11 m along x, 60 frames at 10 Hz through
+    camera 0.11 m along x, its first STEREO_VI_FRAMES frames at 10 Hz through
     track_stereo_inertial. The metric ATE is that of the saved trajectory
     (every tracked frame rebuilt through its reference keyframe in the final
     map): the IMU initialization rotates the world to gravity, so track-time
@@ -1599,7 +1629,7 @@ def phase_stereo_vi(torch, smi):
     from hfnet_slam_torch.scenes import (VI_BASELINE, VI_PRODUCTION, stereo_images,
                                          stereo_vi_system, synth_imu, vi_frame_pose, vi_pose)
 
-    size, n = VI_PRODUCTION, 60
+    size, n = VI_PRODUCTION, STEREO_VI_FRAMES
     sys_, _ = stereo_vi_system(size)  # CUDA
     feeds = []
     for i in range(n):
@@ -1712,13 +1742,284 @@ def phases_stereo(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# CNN in the loop (phase 17) and the mesh layer (phase 18)
+# ---------------------------------------------------------------------------
+
+ATE_CNN_REFERENCE_M = 0.7836  # BENCH_r05: the reference's ate_cnn_m on an 8.74 m path
+# the mesh routes agree as tests/test_torch_parallel.py holds them (TOL_MESH)
+TOL_MESH_M = 2e-3
+
+
+def _train_step_profile(torch, world, n=20):
+    """One self-training step on the card (two 640x480 views, 192 pairs,
+    descriptors only, bench.py's recipe) from the seed-0 net: CUDA-event ms
+    of the whole step over n steps and of its forward, backward and Adam
+    update, device ms and kernel count of one step under torch.profiler,
+    and its bound: 3 x the forward FLOPs (forward, then the backward's two
+    products per layer) of both views at the float32 peak."""
+    from hfnet_slam_torch.models import selftrain as ST
+    from hfnet_slam_torch.tools import extract_breakdown as XB
+    from hfnet_slam_torch.tools.peaks import H100_BYTES_PER_S, H100_FP32_FLOPS
+
+    net = ST.trainable_copy(ST.init_net())  # device=None: CUDA
+    dev = next(net.parameters()).device
+    opt = ST.make_optimizer(net, 1e-3)
+    pa, pb = world.orbit_pose(0), world.orbit_pose(4)
+    (ia, da), (ib, _) = world.render_rgbd(*pa), world.render_rgbd(*pb)
+    ua, ub = world.correspondences(pa, pb, da, 256, np.random.default_rng(0))
+    H, W = da.shape
+    t = [torch.as_tensor(x, device=dev) for x in (ia, ib, ua[:192], ub[:192])]
+    tgt = torch.zeros((H // 8, W // 8), dtype=torch.int64, device=dev)
+    args = (t[0], t[1], t[2], t[3], tgt, tgt, (H, W), 0.0)
+
+    def step():
+        return ST.train_step(net, opt, *args)
+
+    for _ in range(3):
+        step()
+    ms = _events_ms(torch, lambda: [step() for _ in range(n)], n)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(n)]
+    for e in ev:
+        e[0].record()
+        opt.zero_grad(set_to_none=True)
+        loss = ST.loss_fn(net, *args)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        opt.step()
+        e[3].record()
+    torch.cuda.synchronize()
+    split = {name: float(np.mean([e[i].elapsed_time(e[i + 1]) for e in ev]))
+             for i, name in enumerate(("forward_ms", "backward_ms", "adam_ms"))}
+    dev_ms, kernels = XB._profile(step)
+    c = XB.forward_cost(H, W, False)
+    h8, w8 = H // 8, W // 8
+    det_flops = 2.0 * h8 * w8 * 128 * 9 * 128 + 2.0 * h8 * w8 * 65 * 128  # not run here
+    fwd = c["flops"] - det_flops
+    flops = 2 * 3 * fwd
+    n_params = sum(p.numel() for p in ST.local_parameters(net))
+    # bytes: both images and the pairs read; each local parameter, its
+    # gradient and Adam's two moments read and the parameter and moments
+    # written once
+    nbytes = 4.0 * (2 * H * W + 4 * 192) + 4.0 * 7 * n_params
+    t_ops, t_bytes = flops / H100_FP32_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    b, by = XB.bound(t_ops, t_bytes)
+    return {"ms": ms, **split, "device_ms": dev_ms, "kernels": kernels,
+            "gflop": flops / 1e9, "local_params": n_params, "bound_ms": b, "bound_by": by,
+            "bound_share": b / ms}
+
+
+def _true_match_share(torch, world, ext, i, j, tol=3.0):
+    """Frames i and j through `ext` and the gated mutual matcher
+    (match_descriptors_fused, row_top2 both ways): the share of mutual
+    matches within `tol` px of where the world's exact geometry sends the
+    keypoint of frame i (its depth at the nearest pixel), and the inputs."""
+    from hfnet_slam_torch.ops import bf_match as B
+
+    (pa, pb) = world.orbit_pose(i), world.orbit_pose(j)
+    (ia, da), (ib, _) = world.render_rgbd(*pa), world.render_rgbd(*pb)
+    fa, fb = ext(ia), ext(ib)
+    idx, _ = B.match_descriptors_fused(fa.desc, fa.mask, fb.desc, fb.mask)
+    hit = (idx >= 0).cpu().numpy()
+    xa = fa.xy.cpu().numpy()[hit]
+    xb = fb.xy.cpu().numpy()[idx.cpu().numpy()[hit]]
+    H, W = da.shape
+    u = np.clip(np.round(xa[:, 0]).astype(int), 0, W - 1)
+    v = np.clip(np.round(xa[:, 1]).astype(int), 0, H - 1)
+    z = da[v, u]
+    px = world.cam.params.cpu().numpy()
+    pc = np.stack([(xa[:, 0] - px[2]) / px[0] * z, (xa[:, 1] - px[3]) / px[1] * z, z], 1)
+    pcb = ((pc - pa[1]) @ pa[0]) @ pb[0].T + pb[1]
+    true_b = world._project(pcb)
+    near = np.linalg.norm(true_b - xb, axis=1) <= tol
+    share = float(near.mean()) if len(near) else 0.0
+    return {"mutual_matches": int(hit.sum()), "within_3px": int(near.sum()),
+            "share_within_3px": share}, (fa.desc, fa.mask, fb.desc, fb.mask)
+
+
+def phase_cnn(torch, smi):
+    """bench.py's CNN-in-the-loop run at production size on the card."""
+    from hfnet_slam_torch.models import selftrain as ST
+    from hfnet_slam_torch.models.extractor import HFExtractor
+    from hfnet_slam_torch.scenes import CNN_PRODUCTION, cnn_run, cnn_system
+
+    size = CNN_PRODUCTION
+    t0 = time.perf_counter()
+    sys_, world, tstats = cnn_system(size)  # device=None: CUDA; trains on the card
+    build_s = time.perf_counter() - t0
+    losses = tstats.pop("losses")
+    check(np.isfinite(losses).all(), "a non-finite training loss")
+    step = _train_step_profile(torch, world)
+
+    reset_counts()  # count only the 120-frame run's launches
+    run = cnn_run(sys_, world, size["frames"])
+    launches, by_shape = read_counts()
+    states = run.pop("states")
+    inliers = run.pop("inliers")
+    est_ok = "ate_cnn_m" in run
+    sys_.shutdown()
+
+    # the matcher called directly on two frames: the trained net and the
+    # seed-0 net at the same extractor settings (not main-path launches)
+    ext = sys_.extractor
+    reset_counts()
+    trained, captured = _true_match_share(torch, world, ext, 0, 4)
+    seed0_ext = HFExtractor(ST.init_net(), ext.image_hw, n_features=size["n_features"],
+                            n_levels=size["n_levels"], pad_to=size["pad_to"], threshold=0.003)
+    seed0, _ = _true_match_share(torch, world, seed0_ext, 0, 4)
+    n_call, shapes_call = read_counts()
+    check(bool(captured[1].any()), "frame 0 has no valid keypoint (maskA empty)")
+    rech = recheck(torch, "cnn trained descriptors", (captured, {}), exact=True)
+
+    res = {
+        "cnn_train_s": tstats["train_s"], "cnn_train_loss": tstats["loss_last"],
+        "loss_first": tstats["loss_first"], "loss_last": tstats["loss_last"],
+        "train_steps": tstats["steps"], "system_build_s": build_s,
+        **run,
+        "ate_cnn_reference_m": ATE_CNN_REFERENCE_M,
+        "reference_tpu_figures": {"cnn_e2e_fps": 5.22, "cnn_train_s": 36.2,
+                                  "note": "BENCH_r05, the JAX reference on a TPU"},
+        "train_step": step, "states": states, "inliers": inliers,
+        "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape,
+        "matcher_trained": trained, "matcher_seed0": seed0,
+        "matcher_call_launches": n_call, "card": smi,
+    }
+    log("cnn: " + json.dumps(res))
+    check(run["cnn_lost"] == 0, f"{run['cnn_lost']} frames LOST")
+    check(run["cnn_tracked_frac"] >= 0.9, f"tracked share {run['cnn_tracked_frac']} < 0.9")
+    check(run["cnn_kf_count"] >= 3, f"{run['cnn_kf_count']} keyframes, want >= 3")
+    check(est_ok, "20 or fewer frames tracked: no ATE")
+    check(run["ate_cnn_m"] < 0.35 * run["cnn_path_m"],
+          f"ATE {run['ate_cnn_m']} m >= 0.35 x the {run['cnn_path_m']} m path")
+    check(tstats["loss_last"] < 0.6 * tstats["loss_first"],
+          f"training loss {tstats['loss_last']} >= 0.6 x {tstats['loss_first']}")
+    return launches, by_shape, n_call, shapes_call, rech, res
+
+
+def _map_cost(torch, store, cam, edges):
+    """Huber-robust reprojection cost (chi2 5.991) of fixed edges (kf, slot,
+    mp, uv, inv_sigma2) at the store's current poses and points."""
+    from hfnet_slam_torch.optim import factors
+
+    kf, mp, uv, inv_s2 = edges
+    dev = cam.params.device
+    R = torch.tensor(store.kf_R[kf], device=dev)
+    t = torch.tensor(store.kf_t[kf], device=dev)
+    p = torch.tensor(store.mp_pos[mp], device=dev)
+    pc = (R @ p[..., None])[..., 0] + t
+    chi2 = torch.sum((cam.project(pc) - torch.tensor(uv, device=dev)) ** 2, -1) * \
+        torch.tensor(inv_s2, device=dev)
+    d2 = factors.CHI2_MONO
+    rob = torch.where(chi2 <= d2, chi2, 2.0 * torch.sqrt(d2 * torch.clamp(chi2, min=0.0)) - d2)
+    return float(torch.where(pc[:, 2] > 0, rob, 0.0).sum())
+
+
+def phase_mesh(torch, smi, loop_sys):
+    """Global BA of phase 5's final map three ways (the single solver sized
+    to the map, the distributed solver on the one-shard default mesh, on a
+    4-shard mesh on the one card), then install_mesh and one retrieval."""
+    from hfnet_slam_torch.parallel import dist_ba as DBA
+    from hfnet_slam_torch.parallel.multihost import make_mesh
+    from hfnet_slam_torch.slam import retrieval as SR
+    from hfnet_slam_torch.slam.local_mapping import LocalMapper
+    from hfnet_slam_torch.slam.map import MapStore
+
+    cfg = loop_sys.cfg
+    rounds = cfg.loop.gba_rounds
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "loop_map.npz")
+        loop_sys.store.save(path)
+        stores = [MapStore.load(path) for _ in range(3)]
+    s0 = stores[0]
+    kf_ids = s0.valid_kf_ids()
+    anchor = int(kf_ids[0])
+    kf_e, slot_e, mp_e = s0.observing_slots(np.nonzero(s0.mp_valid)[0])
+    keep = s0.kf_valid[kf_e]
+    kf_e, slot_e, mp_e = kf_e[keep], slot_e[keep], mp_e[keep]
+    edges = (kf_e, mp_e, s0.kf_xy[kf_e, slot_e],
+             (1.0 / (1.2 ** (2.0 * s0.kf_octave[kf_e, slot_e]))).astype(np.float32))
+    cam = loop_sys.cam
+    cost0 = _map_cost(torch, s0, cam, edges)
+    n_mp, n_obs = int(s0.mp_valid.sum()), len(kf_e)
+
+    seen_costs = []
+    real = DBA.dist_bundle_adjust
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        seen_costs.append(out[2])
+        return out
+
+    reset_counts()
+    routes = {}
+    DBA.dist_bundle_adjust = spy
+    try:
+        for name, store in zip(("single", "dist_1", "dist_4"), stores):
+            m = LocalMapper(cam, store, cfg.mapper)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "single":  # the port's route before this slice
+                caps = tuple(1 << max(lo, int(n - 1).bit_length())
+                             for n, lo in ((len(kf_ids), 3), (n_mp, 4), (n_obs, 6)))
+                m._run_ba(list(kf_ids), fixed_ids={anchor}, rounds=rounds, kf_cap=caps[0],
+                          mp_cap=caps[1], edge_cap=caps[2])
+            else:
+                if name == "dist_4":
+                    m.mesh = make_mesh("ba", n_local=4)  # device=None: CUDA
+                m.run_global_ba(fixed_ids=[anchor], rounds=rounds)  # past ba_kf_cap
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            iters = sum(n for n, _ in rounds) if name == "single" else len(seen_costs[-1]) - 1
+            routes[name] = {"cost": _map_cost(torch, store, cam, edges), "iterations": iters,
+                            "ms": ms, "dist_gba": m.stats.get("dist_gba", 0),
+                            "map_points_after": int(store.mp_valid.sum())}
+    finally:
+        DBA.dist_bundle_adjust = real
+
+    def centres(s):
+        return np.einsum("kji,kj->ki", s.kf_R[kf_ids], -s.kf_t[kf_ids])
+
+    mesh_dev = float(np.linalg.norm(centres(stores[1]) - centres(stores[2]), axis=1).max())
+
+    # install_mesh on a 4-shard mesh and one retrieval, against the unmeshed scan
+    store = loop_sys.store
+    q = store.kf_gdesc[int(kf_ids[len(kf_ids) // 2])].copy()
+    plain = SR.score_all(store, q)
+    cand_plain = SR.detect_n_best_candidates(store, q, exclude=[int(kf_ids[len(kf_ids) // 2])])
+    loop_sys.install_mesh(make_mesh("ba", n_local=4))
+    meshed = SR.score_all(store, q)
+    cand_mesh = SR.detect_n_best_candidates(store, q, exclude=[int(kf_ids[len(kf_ids) // 2])])
+    launches, by_shape = read_counts()
+    score_err = float(np.abs(meshed - plain).max())
+    res = {"keyframes": len(kf_ids), "map_points": n_mp, "edges": n_obs,
+           "cost_before": cost0, "routes": routes, "dist_1_vs_4_centre_max_m": mesh_dev,
+           "retrieval": {"score_max_abs_err": score_err, "candidates_plain": cand_plain,
+                         "candidates_meshed": cand_mesh,
+                         "cache_built": getattr(store, "_retrieval_cache", None) is not None},
+           "row_top2_launches": launches, "nccl_across_cards": "not verified (one card)",
+           "card": smi}
+    log("mesh: " + json.dumps(res))
+    check(routes["dist_1"]["dist_gba"] >= 1, "the one-shard route did not count dist_gba")
+    check(routes["dist_4"]["dist_gba"] >= 1, "the 4-shard route did not count dist_gba")
+    check(all(np.isfinite(r["cost"]) for r in routes.values()), "a non-finite route cost")
+    check(routes["dist_1"]["cost"] <= routes["single"]["cost"] * 1.001,
+          f"dist route cost {routes['dist_1']['cost']} > 1.001 x the single solver's "
+          f"{routes['single']['cost']}")
+    check(mesh_dev <= TOL_MESH_M, f"1- and 4-shard routes {mesh_dev} m apart > {TOL_MESH_M}")
+    check(score_err <= 1e-6 and cand_mesh == cand_plain, "meshed retrieval differs")
+    check(res["retrieval"]["cache_built"], "the sharded retrieval table was not built")
+    return launches, by_shape, res
+
+
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port (one GPU)")
-    ap.add_argument("--only", choices=("kernel", "vi", "stereo"),
+    ap.add_argument("--only", choices=("kernel", "vi", "stereo", "cnn", "mesh"),
                     help="run phases 1-3 (with 'vi' also phases 10-11, with 'stereo' phases "
-                    "12-16) and stop, without the result lines")
+                    "12-16, with 'cnn' phase 17, with 'mesh' phases 5 and 18) and stop, "
+                    "without the result lines")
     args = ap.parse_args(argv)
     import torch
 
@@ -1736,13 +2037,17 @@ def main(argv=None):
         phase_vi_async(torch, smi)
     if args.only == "stereo":
         phases_stereo(torch, smi)
+    if args.only == "cnn":
+        phase_cnn(torch, smi)
+    if args.only == "mesh":
+        phase_mesh(torch, smi, phase_loop(torch, smi)[4])
     if args.only:
         log(f"chip_smoke: --only {args.only}: those phases passed; no result printed")
         return 0
     t0 = time.perf_counter()
     n_browse, shapes_browse = phase_slice(torch, smi)
     t1 = time.perf_counter()
-    n_loop, shapes_loop, rech_loop, loop_res = phase_loop(torch, smi)
+    n_loop, shapes_loop, rech_loop, loop_res, loop_sys = phase_loop(torch, smi)
     t2 = time.perf_counter()
     n_reloc, shapes_reloc, rech_reloc, n_reloc_calls = phase_reloc(torch, smi)
     t3 = time.perf_counter()
@@ -1759,33 +2064,44 @@ def main(argv=None):
     n_via, shapes_via, threads_via, rech_via = phase_vi_async(torch, smi)
     t8 = time.perf_counter()
     depth = phases_stereo(torch, smi)
+    t9 = time.perf_counter()
+    n_cnn, shapes_cnn, n_cnn_call, shapes_cnn_call, rech_cnn, _ = phase_cnn(torch, smi)
+    t10 = time.perf_counter()
+    n_mesh, shapes_mesh, _ = phase_mesh(torch, smi, loop_sys)
     log(f"phase seconds: browse {t1 - t0:.1f}, loop {t2 - t1:.1f}, "
         f"relocalization {t3 - t2:.1f}, extraction {t4 - t3:.1f}, loop async {t5 - t4:.1f}, "
         f"euroc runner {t6 - t5:.1f}, vi {t7 - t6:.1f}, vi async {t8 - t7:.1f}, "
         + ", ".join(f"{k} {v:.1f}" for k, v in depth["seconds"].items())
-        + f"; phases 4-16 {time.perf_counter() - t0:.1f}")
+        + f", cnn {t10 - t9:.1f}, mesh {time.perf_counter() - t10:.1f}"
+        + f"; phases 4-18 {time.perf_counter() - t0:.1f}")
 
     # the browse shape leads; the loop-association shapes follow under
     # "shapes". Paths are main-path runs; "relocalization_calls" is the part
     # of the relocalization count made inside relocalization, and
     # "extraction_matcher_call" phase 7's direct search_brute_force call on
-    # two frames, which is not a main-path run and not in "launches"
+    # two frames, which is not a main-path run and not in "launches"; "cnn"
+    # is phase 17's 120-frame run, "cnn_matcher_call" its direct calls on
+    # two frames' descriptors (not in "launches"), "mesh" phase 18's
+    # global BAs and retrieval
     kern = {
         "name": "row_top2", "route": "cuda",
         "source": "hfnet_slam_torch/csrc/row_top2.cu",
         "replaces": "hfnet_slam_tpu/ops/pallas_match.py:52",
         "launches": (n_browse + n_loop + n_reloc + n_track + n_async + n_euroc + n_vi + n_via
-                     + sum(depth["launches"].values())),
+                     + sum(depth["launches"].values()) + n_cnn + n_mesh),
         "launches_by_path": {"browse": n_browse, "loop": n_loop, "relocalization": n_reloc,
                              "relocalization_calls": n_reloc_calls,
                              "extraction_track": n_track, "extraction_matcher_call": n_call,
                              "loop_async": n_async, "euroc_runner": n_euroc, "vi": n_vi,
-                             "vi_async": n_via, **depth["launches"]},
+                             "vi_async": n_via, **depth["launches"], "cnn": n_cnn,
+                             "cnn_matcher_call": n_cnn_call, "mesh": n_mesh},
         "launches_by_shape": {"browse": shapes_browse, "loop": shapes_loop,
                               "relocalization": shapes_reloc, "extraction_track": shapes_track,
                               "extraction_matcher_call": shapes_call,
                               "loop_async": shapes_async, "euroc_runner": shapes_euroc,
-                              "vi": shapes_vi, "vi_async": shapes_via, **depth["shapes"]},
+                              "vi": shapes_vi, "vi_async": shapes_via, **depth["shapes"],
+                              "cnn": shapes_cnn, "cnn_matcher_call": shapes_cnn_call,
+                              "mesh": shapes_mesh},
         "loop_async_launches_by_thread": threads_async,
         "vi_async_launches_by_thread": threads_via,
         "max_abs_err": max_err,
@@ -1793,7 +2109,7 @@ def main(argv=None):
         "bound_peak": "3xTF32 on the tensor cores, 495 TFLOP/s",
         "shapes": timings[1:],
         "recheck_on_path_inputs": [rech_loop, rech_reloc, rech_track, rech_call, rech_async,
-                                   rech_euroc, rech_via, *depth["rechecks"]],
+                                   rech_euroc, rech_via, *depth["rechecks"], rech_cnn],
     }
     log(smi)
     log(json.dumps({"kernels": [kern]}))

@@ -81,7 +81,13 @@ def _zeros(n, generator):
 
 
 def relu6(x):
-    return torch.clamp(x, 0.0, 6.0)
+    y = torch.clamp(x, 0.0, 6.0)
+    if not x.requires_grad:
+        return y
+    # the reference's jnp.clip passes half the gradient at exactly 0 and 6
+    # (ties of lax.max / lax.min), where clamp passes all of it and hardtanh
+    # none; zero biases make exact zeros common at initialization
+    return 0.5 * (y + F.hardtanh(x, 0.0, 6.0))
 
 
 def _l2(x, dim):
@@ -199,15 +205,21 @@ class HFNet(nn.Module):
             x = blk(x)
         return local_feat, _nhwc(x)
 
+    def descriptor_map(self, local_feat):
+        """-> desc_map (B,H/8,W/8,256), L2-normalized."""
+        return _nhwc(_l2(self.desc1(relu6(self.desc0(_nchw(local_feat)))), 1))
+
+    def detector_logits(self, local_feat):
+        """-> the detector's 65-way cell logits (B,65,H/8,W/8), NCHW."""
+        return self.det1(relu6(self.det0(_nchw(local_feat))))
+
     def local_head(self, local_feat):
         """-> (dense_scores (B,H,W), desc_map (B,H/8,W/8,256) L2-normalized)."""
-        x = _nchw(local_feat)
-        d = _l2(self.desc1(relu6(self.desc0(x))), 1)
-        logits = self.det1(relu6(self.det0(x)))
+        logits = self.detector_logits(local_feat)
         prob = torch.softmax(logits, dim=1)[:, :-1]  # drop the dustbin
         # depth_to_space(8) in DCR order: out[8h+i, 8w+j] = prob[i*8+j, h, w]
         scores = F.pixel_shuffle(prob, DETECTOR_GRID)[:, 0]
-        return scores, _nhwc(d)
+        return scores, self.descriptor_map(local_feat)
 
     def global_head(self, global_feat, valid_mask=None):
         """NetVLAD + dimensionality reduction -> (B, 4096) L2-normalized.

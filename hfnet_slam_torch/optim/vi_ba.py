@@ -116,34 +116,93 @@ def _vis(cam_kind, cam_params, prob: VIBAProblem, R, p, pts, with_jac):
     return r, pc[..., 2], Jb, Jpc @ R_cw
 
 
+def _vis_costs(cam_kind, cam_params, prob: VIBAProblem, R, p, pts, delta2, robust):
+    """Per-edge visual (robust) costs at the states, 0 on invalid edges and
+    behind-camera points."""
+    r, depth, _, _ = _vis(cam_kind, cam_params, prob, R, p, pts, False)
+    chi2 = torch.sum(r * r, -1) * prob.inv_sigma2
+    m = prob.valid * (depth > 0)
+    if robust:
+        chi2 = torch.where(chi2 <= delta2, chi2,
+                           2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=0.0)) - delta2)
+    return chi2 * m
+
+
+def _state_free(prob: VIBAProblem):
+    """(K,15) 1 where a state's component optimizes, 0 where it is held."""
+    pose_rows = (torch.arange(15, device=prob.fixed.device) < 6)[None, :]
+    return ((~prob.fixed)[:, None] & ~(prob.fix_pose_only[:, None] & pose_rows)).to(
+        prob.p_wb.dtype)
+
+
+def _state_step(prob: VIBAProblem, S_vis, Hbb, rhs_vis, rl, Jl, lam, free,
+                max_step=0.5, lam_eps=1e-8):
+    """The reduced (K,15,K,15) system from the visual Schur terms (S_vis
+    (K,6,K,6), Hbb (K,6,6), rhs_vis (K,6)) and the inertial links' residuals
+    and Jacobians, damped, gauged by `free`, solved Jacobi-preconditioned
+    with one refinement step, and capped to a max_step trust region.
+    Returns dx (K,15)."""
+    K, Dm = prob.R_wb.shape[0], 15
+    dt, dev = prob.p_wb.dtype, prob.p_wb.device
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eyeD = torch.eye(Dm, dtype=dt, device=dev)
+    kk = torch.arange(K, device=dev)
+    li, lj = prob.li, prob.lj
+    Hl = Jl.transpose(1, 2) @ Jl
+    bl = (Jl.transpose(1, 2) @ rl[..., None])[..., 0]
+    S = torch.zeros((K, Dm, K, Dm), dtype=dt, device=dev)
+    S[:, :6, :, :6] = S_vis
+    S[kk, :6, kk, :6] += Hbb
+    Sf = S.permute(0, 2, 1, 3).reshape(K * K, Dm, Dm)
+    Sf.index_add_(0, li * K + li, Hl[:, :15, :15])
+    Sf.index_add_(0, li * K + lj, Hl[:, :15, 15:])
+    Sf.index_add_(0, lj * K + li, Hl[:, 15:, :15])
+    Sf.index_add_(0, lj * K + lj, Hl[:, 15:, 15:])
+    S = Sf.reshape(K, K, Dm, Dm).permute(0, 2, 1, 3).contiguous()
+    S[0, 9:12, 0, 9:12] += prob.prior_g * eye3
+    S[0, 12:15, 0, 12:15] += prob.prior_a * eye3
+    rhs = torch.zeros((K, Dm), dtype=dt, device=dev)
+    rhs[:, :6] += rhs_vis
+    rhs.index_add_(0, li, -bl[:, :15])
+    rhs.index_add_(0, lj, -bl[:, 15:])
+
+    # damping, gauge, preconditioned solve
+    diag = torch.diagonal(S.reshape(K * Dm, K * Dm)).reshape(K, Dm)
+    S[kk, :, kk, :] += torch.diag_embed(lam * diag + lam_eps)
+    S = S * free[:, :, None, None] * free[None, None, :, :]
+    S[kk, :, kk, :] += eyeD[None] * (1.0 - free)[:, :, None]
+    rhs = rhs * free
+    Sm = S.reshape(K * Dm, K * Dm)
+    d = torch.sqrt(torch.clamp(torch.diagonal(Sm), min=1e-12))
+    Sm = Sm / d[:, None] / d[None, :]
+    b = rhs.reshape(K * Dm) / d
+    y = solve(Sm, b)
+    y = y + solve(Sm, b - Sm @ y)
+    dx = (y / d).reshape(K, Dm) * free
+    step = torch.sqrt(torch.sum(dx * dx, -1))
+    return dx * torch.clamp(max_step / torch.clamp(torch.max(step), min=1e-12), max=1.0)
+
+
+def _retract(R, p, v, bg, ba, dx):
+    """States moved by dx (K,15): R' = R Exp(phi), the rest additive."""
+    return (lie.orthonormalize(R @ lie.so3_exp(dx[:, :3])), p + dx[:, 3:6], v + dx[:, 6:9],
+            bg + dx[:, 9:12], ba + dx[:, 12:15])
+
+
 def vi_ba_iterate(cam_kind, cam_params, prob: VIBAProblem, n_iters: int, robust: bool,
                   chi2_mono: float):
     """n_iters of LM on the joint VI problem. Returns (prob', costs)."""
     K = prob.R_wb.shape[0]
     M = prob.points.shape[0]
-    D = 15
     dt, dev = prob.p_wb.dtype, prob.p_wb.device
     L9, Lg, La = _link_whiteners(prob)
     delta2 = torch.where(prob.wz > 0, factors.CHI2_STEREO, chi2_mono).to(dt)
     max_step = 0.5
     lam_eps = 1e-8
     eye3 = torch.eye(3, dtype=dt, device=dev)
-    eyeD = torch.eye(D, dtype=dt, device=dev)
-    kk = torch.arange(K, device=dev)
     wcp_ids = prob.pt_idx * K + prob.kf_idx
-    li, lj = prob.li, prob.lj
-    pose_rows = (torch.arange(D, device=dev) < 6)[None, :]
-    free = ((~prob.fixed)[:, None] & ~(prob.fix_pose_only[:, None] & pose_rows)).to(dt)
+    free = _state_free(prob)
     lvalid = prob.lvalid.to(dt)
-
-    def vis_costs(R, p, pts):
-        r, depth, _, _ = _vis(cam_kind, cam_params, prob, R, p, pts, False)
-        chi2 = torch.sum(r * r, -1) * prob.inv_sigma2
-        m = prob.valid * (depth > 0)
-        if robust:
-            chi2 = torch.where(chi2 <= delta2, chi2,
-                               2.0 * torch.sqrt(delta2 * torch.clamp(chi2, min=0.0)) - delta2)
-        return chi2 * m
 
     R, p, v, bg, ba, pts = prob.R_wb, prob.p_wb, prob.v, prob.bg, prob.ba, prob.points
     lam = torch.tensor(1e-3, dtype=dt, device=dev)
@@ -162,47 +221,15 @@ def vi_ba_iterate(cam_kind, cam_params, prob: VIBAProblem, n_iters: int, robust:
         Hpp = _segment_sum(JpW.transpose(1, 2) @ Jp, prob.pt_idx, M)
         bp = _segment_sum((JpW.transpose(1, 2) @ r[..., None])[..., 0], prob.pt_idx, M)
         Wcp = _segment_sum(JbW.transpose(1, 2) @ Jp, wcp_ids, M * K).reshape(M, K, 6, 3)
-
-        # ---- inertial part ----
-        rl, Jl = _links(prob, L9, Lg, La, R, p, v, bg, ba, True)
-        Hl = Jl.transpose(1, 2) @ Jl
-        bl = (Jl.transpose(1, 2) @ rl[..., None])[..., 0]
-
-        # ---- reduced camera system (K,15,K,15) ----
         Hpp_d = Hpp + (lam * torch.diagonal(Hpp, dim1=-2, dim2=-1) + lam_eps)[..., None] * eye3
         Hpp_inv = inv3_sym(Hpp_d)
         WHinv = torch.einsum("mkac,mcd->mkad", Wcp, Hpp_inv)
-        S = torch.zeros((K, D, K, D), dtype=dt, device=dev)
-        S[:, :6, :, :6] = -torch.einsum("mkad,mled->kale", WHinv, Wcp)
-        S[kk, :6, kk, :6] += Hbb
-        Sf = S.permute(0, 2, 1, 3).reshape(K * K, D, D)
-        Sf.index_add_(0, li * K + li, Hl[:, :15, :15])
-        Sf.index_add_(0, li * K + lj, Hl[:, :15, 15:])
-        Sf.index_add_(0, lj * K + li, Hl[:, 15:, :15])
-        Sf.index_add_(0, lj * K + lj, Hl[:, 15:, 15:])
-        S = Sf.reshape(K, K, D, D).permute(0, 2, 1, 3).contiguous()
-        S[0, 9:12, 0, 9:12] += prob.prior_g * eye3
-        S[0, 12:15, 0, 12:15] += prob.prior_a * eye3
-        rhs = torch.zeros((K, D), dtype=dt, device=dev)
-        rhs[:, :6] += -bb + torch.einsum("mkad,md->ka", WHinv, bp)
-        rhs.index_add_(0, li, -bl[:, :15])
-        rhs.index_add_(0, lj, -bl[:, 15:])
 
-        # ---- damping, gauge, preconditioned solve ----
-        diag = torch.diagonal(S.reshape(K * D, K * D)).reshape(K, D)
-        S[kk, :, kk, :] += torch.diag_embed(lam * diag + lam_eps)
-        S = S * free[:, :, None, None] * free[None, None, :, :]
-        S[kk, :, kk, :] += eyeD[None] * (1.0 - free)[:, :, None]
-        rhs = rhs * free
-        Sm = S.reshape(K * D, K * D)
-        d = torch.sqrt(torch.clamp(torch.diagonal(Sm), min=1e-12))
-        Sm = Sm / d[:, None] / d[None, :]
-        b = rhs.reshape(K * D) / d
-        y = solve(Sm, b)
-        y = y + solve(Sm, b - Sm @ y)
-        dx = (y / d).reshape(K, D) * free
-        step = torch.sqrt(torch.sum(dx * dx, -1))
-        dx = dx * torch.clamp(max_step / torch.clamp(torch.max(step), min=1e-12), max=1.0)
+        # ---- inertial part, the reduced (K,15,K,15) system and its solve ----
+        rl, Jl = _links(prob, L9, Lg, La, R, p, v, bg, ba, True)
+        dx = _state_step(prob, -torch.einsum("mkad,mled->kale", WHinv, Wcp), Hbb,
+                         -bb + torch.einsum("mkad,md->ka", WHinv, bp), rl, Jl, lam, free,
+                         max_step, lam_eps)
 
         # ---- landmarks ----
         Hpc_dc = torch.einsum("mkac,ka->mc", Wcp, dx[:, :6])
@@ -210,16 +237,15 @@ def vi_ba_iterate(cam_kind, cam_params, prob: VIBAProblem, n_iters: int, robust:
         pstep = torch.sqrt(torch.sum(dp_pts * dp_pts, -1))
         dp_pts = dp_pts * torch.clamp(max_step / torch.clamp(pstep, min=1e-12), max=1.0)[:, None]
 
-        R_n = lie.orthonormalize(R @ lie.so3_exp(dx[:, :3]))
-        p_n, v_n = p + dx[:, 3:6], v + dx[:, 6:9]
-        bg_n, ba_n = bg + dx[:, 9:12], ba + dx[:, 12:15]
+        R_n, p_n, v_n, bg_n, ba_n = _retract(R, p, v, bg, ba, dx)
         pts_n = pts + dp_pts
 
         # accept on summed per-term differences; the whitened inertial chi2
         # are O(1e8), so their difference is taken as (r_n - r_o)(r_n + r_o)
         rn, _ = _links(prob, L9, Lg, La, R_n, p_n, v_n, bg_n, ba_n, False)
-        c_vis_n = vis_costs(R_n, p_n, pts_n)
-        dcost = torch.sum(c_vis_n - vis_costs(R, p, pts)) + \
+        c_vis_n = _vis_costs(cam_kind, cam_params, prob, R_n, p_n, pts_n, delta2, robust)
+        dcost = torch.sum(c_vis_n - _vis_costs(cam_kind, cam_params, prob, R, p, pts, delta2,
+                                               robust)) + \
             torch.sum(torch.sum((rn - rl) * (rn + rl), -1) * lvalid)
         c_new = torch.sum(c_vis_n) + torch.sum(torch.sum(rn * rn, -1) * lvalid)
         ok = (dcost < 0) & torch.all(torch.isfinite(dx)) & torch.all(torch.isfinite(dp_pts))

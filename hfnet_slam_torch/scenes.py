@@ -69,6 +69,16 @@ track_stereo_inertial themselves.
 `write_tum_rgbd_sequence` writes a TUM RGB-D folder (textured 640x480
 frames, 16-bit depth PNGs at factor 5000 of a tilted plane, rgb.txt,
 depth.txt) and a settings file of TUM1's camera for the RGB-D runner.
+
+CNN in the loop (`cnn_system`, `cnn_run`): bench.py's `_cnn_metrics`
+scenario (:682-869). A CylinderWorld (models/synth.py) renders exact RGB-D
+views of a textured wall around an orbit; HF-Net, from the port's seed-0
+weights, is fine-tuned on the world's exact correspondences
+(models/selftrain.py) and then extracts every frame of the RGB-D SLAM loop,
+with depth sampled at its keypoints (ops/stereo.depth_at_keypoints).
+CNN_PRODUCTION is bench.py's branch for the accelerator (640x480, 675
+features, 4 levels, 250 steps, 120 frames), CNN_SMALL its CPU branch
+(320x240, 400 features, 2 levels, 100 steps, 60 frames).
 """
 from __future__ import annotations
 
@@ -80,8 +90,10 @@ import torch
 from .device import resolve
 from .geometry import cameras
 from .models.extractor import HFExtractor
+from .models import selftrain
 from .models.fake import FakeExtractor, SyntheticWorld
 from .models.hfnet import HFNet
+from .models.synth import CylinderWorld
 from .slam.local_mapping import MapperConfig
 from .slam.loop_closing import LoopCloserConfig
 from .slam.system import SLAMSystem, SystemConfig
@@ -758,3 +770,103 @@ def write_tum_rgbd_sequence(out_dir, n_frames):
     with open(settings, "w") as f:
         f.write(TUM_RGBD_SETTINGS.format(**TUM1_CAM, **EUROC_HFNET))
     return out_dir, settings, np.asarray(stamps)
+
+
+# ---------------------------------------------------------------------------
+# CNN in the loop (bench.py's _cnn_metrics)
+# ---------------------------------------------------------------------------
+
+CNN_PRODUCTION = dict(width=640, height=480, n_features=675, n_levels=4, pad_to=1024,
+                      n_steps=250, frames=120)
+CNN_SMALL = dict(width=320, height=240, n_features=400, n_levels=2, pad_to=1024,
+                 n_steps=100, frames=60)
+CNN_TRAIN = dict(n_pairs=192, n_frames_cache=24)  # pose_range = the run's frames
+
+
+def cnn_world(size, device=None) -> CylinderWorld:
+    """The CylinderWorld of bench.py's CNN run (1400 blobs, seed 5) seen by
+    a pinhole of focal 0.7 W at `size`."""
+    W, H = size["width"], size["height"]
+    cam = cameras.pinhole(0.70 * W, 0.70 * W, W / 2.0, H / 2.0, W, H, device=device)
+    return CylinderWorld(cam, n_blobs=1400, seed=5)
+
+
+def cnn_system(size, device=None):
+    """bench.py's CNN-in-the-loop system at `size` (CNN_PRODUCTION or
+    CNN_SMALL) on `device` (None means CUDA): HF-Net from the port's seed-0
+    init (selftrain.init_net) fine-tuned on the world, behind the HF-Net
+    extractor (675 or 400 features, threshold 0.003, 1024 slots), and
+    bench.py's RGB-D SystemConfig (:790-812: loop closing off, 0.1 m virtual
+    baseline, async mapping, the reference's 0.75 / 0.6 match gates).
+    Returns (SLAMSystem, CylinderWorld, the training's stats); drive it
+    with `cnn_run`."""
+    dev = resolve(device)
+    world = cnn_world(size, dev)
+    trained, stats = selftrain.train(world, n_steps=size["n_steps"], pose_range=size["frames"],
+                                     device=dev, **CNN_TRAIN)
+    W, H, pad = size["width"], size["height"], size["pad_to"]
+    ext = HFExtractor(trained, (H, W), n_features=size["n_features"],
+                      n_levels=size["n_levels"], pad_to=pad, threshold=0.003, device=dev)
+    cfg = SystemConfig(
+        k_max=128, m_max=16384, n_slots=pad, desc_dim=256, gdesc_dim=4096, loop_closing=False,
+        baseline=0.1, async_mapping=True,
+        tracker=TrackerConfig(local_mp_cap=2048, th_high=0.75, th_low=0.6, motion_window=8.0,
+                              local_window=3.0, th_depth=30.0),
+        mapper=MapperConfig(ba_kf_cap=16, ba_mp_cap=4096, ba_edge_cap=16384, tri_neighbors=5))
+    return SLAMSystem(world.cam, ext, cfg, device=dev), world, stats
+
+
+def cnn_run(sys_, world, n_frames):
+    """bench.py's CNN-in-the-loop run: n_frames of the orbit rendered first,
+    extracted with their keypoint depth one frame ahead on a worker
+    (utils/prefetch.pipeline_frames), tracked through track_features at
+    0.05 s a frame. Leaves the system drained (finish()), not shut down.
+    Returns bench.py's keys (cnn_e2e_fps from frame min(20, n/3) on,
+    cnn_tracked_frac, cnn_lost, cnn_kf_count, cnn_inliers_p50, ate_cnn_m
+    and cnn_path_m when more than 20 frames were tracked) and the run's
+    `states` and `inliers` per frame."""
+    import time
+
+    from .evaluation import ate
+    from .ops import stereo as S
+    from .slam.tracking import LOST
+    from .utils.prefetch import pipeline_frames
+
+    frames = [world.render_rgbd(*world.orbit_pose(i)) for i in range(n_frames)]
+    ext, dev, factor = sys_.extractor, sys_.device, sys_.cfg.depth_factor
+
+    def extract_item(item):
+        _, (img, dep) = item
+        feats = ext(img)
+        depth = S.depth_at_keypoints(torch.as_tensor(dep, device=dev), feats.xy, factor)
+        return feats, depth.cpu().numpy()
+
+    est, gtc, states, inliers = [], [], [], []
+    warm = min(20, n_frames // 3)
+    t0 = None
+    for (i, _), (feats, depth) in pipeline_frames(extract_item, list(enumerate(frames))):
+        if i == warm:
+            t0 = time.perf_counter()
+        R, t = world.orbit_pose(i)
+        st, Re, te = sys_.track_features(feats, 0.05 * i, depth=depth)
+        states.append(st)
+        inliers.append(sys_.tracker.n_inliers)
+        if Re is not None:
+            est.append(-np.asarray(Re).T @ np.asarray(te))
+            gtc.append(-R.T @ t)
+    dt = time.perf_counter() - t0
+    sys_.finish()
+    out = {
+        "cnn_e2e_fps": (n_frames - warm) / dt,
+        "cnn_tracked_frac": len(est) / n_frames,
+        "cnn_lost": sum(1 for s in states if s == LOST),
+        "cnn_kf_count": int(sys_.store.kf_valid.sum()),
+        "cnn_inliers_p50": float(np.percentile(np.asarray(inliers, float), 50)),
+        "states": states, "inliers": inliers,
+    }
+    if len(est) > 20:
+        out["ate_cnn_m"] = float(ate.ate_rmse(np.asarray(est), np.asarray(gtc),
+                                              with_scale=False))
+        out["cnn_path_m"] = float(np.linalg.norm(np.diff(np.asarray(gtc), axis=0),
+                                                 axis=1).sum())
+    return out

@@ -15,8 +15,14 @@ inertial BAs: once the IMU is initialized the window BA is
 closing. Observations with a keyframe depth (stereo, RGB-D) carry the
 depth row (weight bf / z^2) in every BA; on a stereo rig (`cfg.rig`, the
 right camera's extrinsic and intrinsics) the right bank's observations
-follow the left edges as ToBody edges, within ba_edge_cap. Out of this
-slice: the distributed solvers (ROADMAP.md Queue 1 item 17).
+follow the left edges as ToBody edges, within ba_edge_cap.
+
+Past the single solver's caps, global BA goes through the distributed Schur
+solver (parallel/dist_ba.py) sized to the whole map, and FullInertialBA past
+fiba_max_joint keyframes through the distributed joint VI solver
+(parallel/dist_vi_ba.py), both on `mesh` (SLAMSystem.install_mesh) or, with
+none installed, on a one-shard mesh on the mapper's device; an installed
+mesh also takes global solves of dist_min_kfs keyframes or more.
 
 Lock discipline (the async pipeline, slam/pipeline.py): each stage gathers
 its inputs under `self.lock` as copies, runs its device work without it, and
@@ -33,7 +39,7 @@ import torch
 
 from .. import device as D
 from ..geometry import imu as IMU
-from ..optim import ba, vi_ba
+from ..optim import ba, factors, vi_ba
 from . import fused
 from . import map as map_mod
 from .map import MapStore
@@ -90,6 +96,10 @@ class LocalMapper:
         self.kf_count = 0
         self.kf_born: dict[int, int] = {}
         self.stats = {"triangulated": 0, "culled_points": 0, "culled_kfs": 0, "fused": 0}
+        # global solves of dist_min_kfs keyframes or more go over an
+        # installed mesh (parallel/dist_ba.py)
+        self.mesh = None
+        self.dist_min_kfs = 48
 
     def _t(self, x, dtype=torch.float32):
         """Host array -> a copy on the mapper's device (never a store view)."""
@@ -329,16 +339,17 @@ class LocalMapper:
     def run_global_ba(self, fixed_ids, rounds=((10, True),), kf_cap=None, mp_cap=None,
                       edge_cap=None, should_abort=None):
         """Full-map BA (GlobalBundleAdjustemnt): every valid keyframe and
-        landmark optimizes. A problem past the caps goes, in the reference,
-        to the distributed Schur solver sized to the whole map, which on one
-        device is the same math as the single solver; here the single solver
-        is sized to the whole problem instead (capacities padded to powers
-        of two), so no keyframe is left on rigid propagation. Keyframes
-        born while a detached solve ran, and points outside the solve,
-        follow their anchors (propagate_ba_correction).
+        landmark optimizes. A problem past the single solver's caps goes
+        through the distributed Schur solver (parallel/dist_ba.py) sized to
+        the whole map, which on one device is the same math, so no keyframe
+        is left on rigid propagation; an installed mesh also takes problems
+        of dist_min_kfs keyframes or more. Keyframes born while a detached
+        solve ran, and points outside the solve, follow their anchors
+        (propagate_ba_correction).
 
-        should_abort: polled between LM rounds (mbStopGBA); once it holds,
-        the solve is discarded without write-back."""
+        should_abort: polled between LM iterations (the distributed route) or
+        rounds (the single solver), mbStopGBA; once it holds, the solve is
+        discarded without write-back."""
         store = self.store
         cfg = self.cfg
         with self.lock:
@@ -350,13 +361,16 @@ class LocalMapper:
             pre_uid = store.kf_uid.copy()
             n_mp = int(store.mp_valid.sum())
             n_obs = int((store.kf_obs[kf_ids] >= 0).sum())
-        caps = (kf_cap or cfg.ba_kf_cap, mp_cap or cfg.ba_mp_cap, edge_cap or cfg.ba_edge_cap)
-        if len(kf_ids) > caps[0] or n_mp > caps[1] or n_obs > caps[2]:
-            caps = tuple(1 << max(lo, int(n - 1).bit_length())
-                         for n, lo in ((len(kf_ids), 3), (n_mp, 4), (n_obs, 6)))
-        res = self._run_ba(list(kf_ids), fixed_ids=set(int(i) for i in fixed_ids),
-                           rounds=rounds, kf_cap=caps[0], mp_cap=caps[1], edge_cap=caps[2],
-                           should_abort=should_abort)
+        use_dist = (self.mesh is not None and len(kf_ids) >= self.dist_min_kfs) \
+            or len(kf_ids) > (kf_cap or cfg.ba_kf_cap) \
+            or n_mp > (mp_cap or cfg.ba_mp_cap) \
+            or n_obs > (edge_cap or cfg.ba_edge_cap)
+        fixed = set(int(i) for i in fixed_ids)
+        if use_dist:
+            res = self._run_dist_gba(list(kf_ids), fixed, rounds, should_abort=should_abort)
+        else:
+            res = self._run_ba(list(kf_ids), fixed_ids=fixed, rounds=rounds, kf_cap=kf_cap,
+                               mp_cap=mp_cap, edge_cap=edge_cap, should_abort=should_abort)
         if res is None:
             return
         with self.lock:
@@ -373,6 +387,104 @@ class LocalMapper:
             pre_t[born] = store.kf_t[born]
             self.propagate_ba_correction(res["kf_ids"], res["mp_ids"], pre_R, pre_t)
             store.bump_change()  # whole-map move: the device mirror re-uploads
+
+    def _default_mesh(self):
+        """One shard on the mapper's device: the route for uncapped solves
+        when no mesh is installed (the distributed solver's math on one
+        device, with no fixed keyframe cap)."""
+        from ..parallel.multihost import Mesh
+
+        return Mesh(self.device)
+
+    def _run_dist_gba(self, kf_ids, fixed_ids, rounds, should_abort=None):
+        """Global BA through the mesh's Schur solver (parallel/dist_ba.py):
+        landmark shards over the mesh, the reduced camera system summed and
+        solved replicated. Sized to the whole problem: every valid keyframe,
+        point and edge takes part, with capacities computed from the problem
+        and padded to powers of two. Depth rows ride along; right-camera
+        (ToBody) edges are not sharded (logged per solve). Outliers are
+        detached by the final reprojection chi2 (with the depth row)."""
+        from ..parallel import dist_ba as DBA
+        from ..utils.log import warn
+
+        mesh = self.mesh if self.mesh is not None else self._default_mesh()
+        self.stats["dist_gba"] = self.stats.get("dist_gba", 0) + 1
+        store = self.store
+        if store.has_right:
+            warn("dist GBA: right-camera (ToBody) edges are not sharded; the global solve "
+                 "uses the left bank and the depth rows only")
+        with self.lock:
+            big0 = store.big_change_idx
+            kf_ids, mp_ids, kf_e, slot_e, mp_e = self._gather_edges(kf_ids, None, None, None,
+                                                                    None)
+            if len(kf_e) == 0:
+                return None
+            K, M = len(kf_ids), len(mp_ids)
+            kf_loc = np.zeros(store.k_max, np.int64)
+            kf_loc[kf_ids] = np.arange(K)
+            mp_loc = np.zeros(store.m_max, np.int64)
+            mp_loc[mp_ids] = np.arange(M)
+            fixed = np.asarray([int(i) in fixed_ids for i in kf_ids])
+            uv = store.kf_xy[kf_e, slot_e]
+            inv_s2 = (1.0 / (1.2 ** (2.0 * store.kf_octave[kf_e, slot_e]))).astype(np.float32)
+            if self.cfg.bf > 0:
+                z_raw = store.kf_depth[kf_e, slot_e]
+                z_meas = np.where(z_raw > 0, z_raw, 0.0).astype(np.float32)
+                wz = np.where(z_raw > 0, self.cfg.bf / np.maximum(z_raw, 1e-3) ** 2,
+                              0.0).astype(np.float32)
+            else:
+                z_meas = np.zeros(len(kf_e), np.float32)
+                wz = np.zeros(len(kf_e), np.float32)
+            n_sh = mesh.size
+            # exact per-shard capacities (shard d holds the edges of the
+            # landmarks whose local id is d modulo the shard count), padded
+            # to powers of two to bound the shapes as the map grows; padding
+            # cameras are fixed identity poses no edge references
+            Ml = 1 << max(4, int(-(-M // n_sh) - 1).bit_length())
+            per_dev = np.bincount(mp_loc[mp_e] % n_sh, minlength=n_sh)
+            El = 1 << max(6, int(per_dev.max() - 1).bit_length())
+            Kp = 1 << max(3, int(K - 1).bit_length())
+            R_pad = np.tile(np.eye(3, dtype=np.float32), (Kp, 1, 1))
+            t_pad = np.zeros((Kp, 3), np.float32)
+            f_pad = np.ones(Kp, bool)
+            R_pad[:K] = store.kf_R[kf_ids]
+            t_pad[:K] = store.kf_t[kf_ids]
+            f_pad[:K] = fixed
+            prob, _ = DBA.partition_edges(
+                n_sh, Kp, Ml, El, R_pad, t_pad, f_pad, store.mp_pos[mp_ids], kf_loc[kf_e],
+                mp_loc[mp_e], uv, inv_s2, np.ones(len(kf_e), bool), z_meas=z_meas, wz=wz,
+                device=mesh.device)
+        if int(prob.valid.sum()) != len(kf_e):
+            raise RuntimeError("partition_edges dropped edges despite exact sizing")
+        out, _, costs = DBA.dist_bundle_adjust(
+            self.cam.kind, self.cam.params.to(mesh.device), prob, mesh, rounds=rounds,
+            should_abort=should_abort)
+        R_new = out.poses_R.cpu().numpy()[:K]
+        t_new = out.poses_t.cpu().numpy()[:K]
+        pts = out.points.cpu().numpy()  # (D, Ml, 3)
+        with self.lock:
+            if should_abort is not None and should_abort():
+                return None  # mbStopGBA: discard
+            if store.big_change_idx != big0:
+                return None  # the whole map moved under the solve: stale
+            free = ~fixed & store.kf_valid[kf_ids]
+            store.kf_R[kf_ids[free]] = R_new[free]
+            store.kf_t[kf_ids[free]] = t_new[free]
+            # the landmark shards back in map order (round-robin ownership)
+            owner = np.arange(M) % pts.shape[0]
+            local = np.arange(M) // pts.shape[0]
+            alive = store.mp_valid[mp_ids] & (local < pts.shape[1])
+            store.mp_pos[mp_ids[alive]] = pts[owner[alive], local[alive]]
+            # outliers by the final reprojection chi2, with the depth row
+            p_c = np.einsum("eij,ej->ei", store.kf_R[kf_e], store.mp_pos[mp_e]) + \
+                store.kf_t[kf_e]
+            uv_hat = self.cam.project(self._t(p_c)).cpu().numpy()
+            chi2 = ((uv_hat - uv) ** 2).sum(1) * inv_s2
+            chi2 = chi2 + (wz * (p_c[:, 2] - z_meas)) ** 2 * inv_s2
+            th = np.where(wz > 0, factors.CHI2_STEREO, factors.CHI2_MONO)
+            self._detach_outliers((chi2 < th) & (p_c[:, 2] > 0), kf_e, slot_e, mp_ids)
+            store.mark_points_dirty(mp_ids)
+        return {"kf_ids": kf_ids, "mp_ids": mp_ids, "costs": costs}
 
     def propagate_ba_correction(self, opt_kfs, opt_mps, pre_R, pre_t, scope=None):
         """Correct every valid keyframe and point NOT covered by a solve:
@@ -666,15 +778,14 @@ class LocalMapper:
         """Whole-map VI-BA (FullInertialBA): every keyframe's 15-d state in
         one problem, for the staged IMU initialization and inertial loop
         closing. Up to fiba_max_joint keyframes the solve is joint, with
-        capacities sized to the map (powers of two). Past that, with
-        fiba_dist=False, overlapping-chunk Gauss-Seidel sweeps of fiba_kf_cap
-        keyframes run; with fiba_dist=True the reference hands the joint
-        problem to its distributed solver (parallel/dist_vi_ba, ROADMAP.md
-        Queue 1 item 17), and on one card this runs the same joint solve,
-        sized to the problem. Keyframes and points outside the solve follow
-        their anchors (propagate_ba_correction).
+        capacities sized to the map (powers of two). Past that, fiba_dist=True
+        solves the same joint problem through the distributed VI solver
+        (parallel/dist_vi_ba.py) on the mesh, and fiba_dist=False sweeps
+        overlapping chunks of fiba_kf_cap keyframes (Gauss-Seidel). Keyframes
+        and points outside the solve follow their anchors
+        (propagate_ba_correction).
 
-        should_abort: polled between chunks and LM rounds (mbStopGBA); on
+        should_abort: polled between chunks and LM iterations (mbStopGBA); on
         True the rest is skipped and nothing more is written back."""
         from ..utils.log import warn
 
@@ -694,16 +805,17 @@ class LocalMapper:
         opt_all, mp_all = [], []
         n_chunks = 0
         if len(kf_ids) <= cfg.fiba_max_joint or cfg.fiba_dist:
-            if len(kf_ids) > cfg.fiba_max_joint:
+            use_dist = len(kf_ids) > cfg.fiba_max_joint
+            if use_dist:
                 warn(f"full_inertial_ba: {len(kf_ids)} KFs > fiba_max_joint="
-                     f"{cfg.fiba_max_joint}; one joint solve sized to the map")
+                     f"{cfg.fiba_max_joint}; distributed joint solve")
             Kp = 1 << max(3, int(len(kf_ids) - 1).bit_length())
             Mp = 1 << max(6, int(max(n_mp, 1) - 1).bit_length())
             Ep = 1 << max(8, int(max(n_obs, 1) - 1).bit_length())
             res = self._run_inertial_ba(opt_ids=kf_ids, fixed_ids=[], vim=vim, mp_ids=None,
                                         rounds=rounds, kf_cap=Kp, mp_cap=Mp, edge_cap=Ep,
                                         prior_g=prior_g, prior_a=prior_a,
-                                        should_abort=should_abort)
+                                        should_abort=should_abort, use_dist=use_dist)
             if res is None:
                 return
             if res:
@@ -755,11 +867,12 @@ class LocalMapper:
 
     def _run_inertial_ba(self, opt_ids, fixed_ids, vim, mp_ids, rounds, kf_cap, prior_g=0.0,
                          prior_a=0.0, should_abort=None, mp_cap=None, edge_cap=None,
-                         abort_mode="discard"):
-        """Build a VIBAProblem under the lock, solve it without the lock,
-        write the body states and landmarks back under it. Returns the
-        solved id sets, {} when there was nothing to solve, or None when the
-        solve went stale or was aborted and was discarded."""
+                         abort_mode="discard", use_dist=False):
+        """Build a VIBAProblem under the lock, solve it without the lock (on
+        the mesh with use_dist), write the body states and landmarks back
+        under it. Returns the solved id sets, {} when there was nothing to
+        solve, or None when the solve went stale or was aborted and was
+        discarded."""
         store = self.store
         with self.lock:
             big0 = store.big_change_idx
@@ -769,8 +882,16 @@ class LocalMapper:
         if built is None:
             return {}
         prob, kf_ids, mp_ids, fixed, fix_pose_only, kf_e, slot_e, n_e = built
-        out = vi_ba.vi_bundle_adjust(self.cam.kind, self.cam.params, prob, rounds=rounds,
-                                     should_abort=should_abort)
+        if use_dist:
+            from ..parallel import dist_vi_ba
+
+            mesh = self.mesh if self.mesh is not None else self._default_mesh()
+            self.stats["dist_fiba"] = self.stats.get("dist_fiba", 0) + 1
+            out = dist_vi_ba.dist_vi_bundle_adjust(self.cam.kind, self.cam.params, prob, mesh,
+                                                   rounds=rounds, should_abort=should_abort)
+        else:
+            out = vi_ba.vi_bundle_adjust(self.cam.kind, self.cam.params, prob, rounds=rounds,
+                                         should_abort=should_abort)
         out = {k: getattr(out, k).cpu().numpy()
                for k in ("R_wb", "p_wb", "v", "bg", "ba", "points", "valid")}
         with self.lock:

@@ -8,10 +8,9 @@ each candidate's score accumulated over its 10 best covisible keyframes with
 the best of the group kept (:107-137), and the top-N groups
 (DetectNBestCandidates) or the >0.75x-best-accumulated set for
 relocalization (DetectRelocalizationCandidates). The group bookkeeping is
-host numpy.
-
-The reference's mesh-sharded scan (parallel/retrieval.py) is ROADMAP.md
-Queue 1 item 17.
+host numpy. With a mesh installed on the store (SLAMSystem.install_mesh) and
+a keyframe table of retrieval_min_kfs rows or more, the scan runs with the
+keyframe axis sharded over the mesh (parallel/retrieval.py).
 """
 from __future__ import annotations
 
@@ -35,7 +34,21 @@ class RetrievalConfig:
 
 def score_all(store: MapStore, gdesc, device=None) -> np.ndarray:
     """(K,) retrieval scores of a query global descriptor (numpy) against
-    every valid keyframe, computed on `device` (None means CUDA)."""
+    every valid keyframe, computed on `device` (None means CUDA), or on the
+    store's mesh with the sharded table cached against the map's keyframe
+    count and free list."""
+    mesh = getattr(store, "retrieval_mesh", None)
+    if mesh is not None and store.k_max >= getattr(store, "retrieval_min_kfs", 64):
+        from ..parallel import retrieval as pret
+
+        version = (store.n_kf, len(store._free_kf))
+        cache = getattr(store, "_retrieval_cache", None)
+        if cache is None or cache[0] != version:
+            store._retrieval_cache = (version, *pret.make_sharded_db(mesh, store.kf_gdesc,
+                                                                     store.kf_valid))
+        _, db, vm = store._retrieval_cache
+        sc = pret.sharded_scores(mesh, np.asarray(gdesc, np.float32)[None], db, vm)
+        return sc[0, :store.k_max].cpu().numpy().copy()
     device = resolve(device)
 
     def t(x):  # a copy: retrieval reads the store off the map lock

@@ -29,8 +29,11 @@ model with triangulation, whose matched right keypoints become right-bank
 observations with ToBody edges in BA; `track_stereo_inertial` adds the IMU
 rows. The depth-edge weight base bf = fx * baseline (or the RGB-D virtual
 baseline) reaches the tracker and the mapper in every mode; a monocular
-frame carries no depth, so its edges carry no depth row. The multi-GPU mesh
-(`install_mesh`) is ROADMAP.md Queue 1 item 17 and raises.
+frame carries no depth, so its edges carry no depth row.
+
+`install_mesh(mesh)` (a parallel/multihost.Mesh) routes big global BAs
+through the distributed Schur solver and large keyframe databases' place
+recognition through the sharded scan, in this map and every later one.
 """
 from __future__ import annotations
 
@@ -191,9 +194,19 @@ class SLAMSystem:
         fl, depth, _ = self._stereo_depth(image_left, image_right)
         return self.track_features(fl, timestamp, depth=depth, imu=imu)
 
-    def install_mesh(self, mesh):
-        raise NotImplementedError(
-            "multi-GPU global BA and retrieval are ROADMAP.md Queue 1 item 17")
+    def install_mesh(self, mesh, dist_min_kfs: int = 48, retrieval_min_kfs: int = 64):
+        """Route big compute over `mesh` (parallel/multihost.Mesh): global BA
+        of dist_min_kfs keyframes or more through the distributed Schur
+        solver (parallel/dist_ba.py), and the place-recognition scan of a
+        keyframe table of retrieval_min_kfs rows or more with its keyframe
+        axis sharded (parallel/retrieval.py). Below those sizes nothing
+        changes. Maps the atlas creates later inherit the mesh."""
+        self.mapper.mesh = mesh
+        self.mapper.dist_min_kfs = dist_min_kfs
+        self._mesh = (mesh, dist_min_kfs, retrieval_min_kfs)
+        for m in self.atlas.maps:
+            m.retrieval_mesh = mesh
+            m.retrieval_min_kfs = retrieval_min_kfs
 
     def track_features(self, feats, timestamp: float, depth=None, imu=None, right=None):
         """Feed pre-extracted features (testing / offline pipelines), with the
@@ -249,6 +262,9 @@ class SLAMSystem:
             self._traj_mark = len(self.tracker.trajectory)
 
     def _rewire(self, store):
+        if getattr(self, "_mesh", None) is not None:  # a new map inherits the mesh
+            store.retrieval_mesh = self._mesh[0]
+            store.retrieval_min_kfs = self._mesh[2]
         if self.cfg.mapper.rig is not None:
             store.enable_right_bank()  # fresh maps of a rig keep their ToBody edges
         self.mapper.store = store

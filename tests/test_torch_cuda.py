@@ -20,7 +20,11 @@ the CPU, inlier masks exactly; vi_ba_iterate's masks exactly and its states
 within 1e-3 (index_add_ accumulates with atomics on the card). Stereo: the
 association's matched columns exactly and its depths within 1e-5 relative;
 the depth lookup exactly; the rig BA's edge validity exactly and its poses
-and points within 1e-3."""
+and points within 1e-3. Self-training: one float32 loss and backward on the
+card against the CPU's in float64, the loss within 1e-5 relative and each
+gradient within 1e-4 of its largest magnitude; the mesh layer: one distributed BA step on
+4 shards, the accept flag equal, poses and cost within 1e-4, landmarks
+1e-3."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -594,3 +598,85 @@ def test_rig_bundle_adjust_on_the_card_matches_the_cpu(cuda):
     err = (out_cpu.points - pts).norm(dim=1)[:36]
     assert float(err.max()) < 2e-2  # the right-only points converge
 
+
+
+# -- self-training and the mesh layer ------------------------------------------
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One self-training loss and backward (both heads, det_weight 1) on the
+    card in float32 against the same step on the CPU in float64, from the
+    same seed-0 weights at 160x128: the loss within 1e-5 relative, every
+    local parameter's gradient within 1e-4 of its largest magnitude (the
+    card measured 2e-6). The CPU's own float32 step is not the yardstick:
+    its sums for the descriptor head's first conv cancel and lose ~2% of
+    that gradient's largest element, the card's do not."""
+    import numpy as np
+
+    from hfnet_slam_torch import device as D
+    from hfnet_slam_torch.geometry import cameras
+    from hfnet_slam_torch.models import selftrain as ST
+    from hfnet_slam_torch.models.synth import CylinderWorld
+
+    D.full_fp32()
+    world = CylinderWorld(cameras.pinhole(112.0, 112.0, 80.0, 64.0, 160, 128, device="cpu"),
+                          n_blobs=900, seed=5)
+    pa, pb = world.orbit_pose(0), world.orbit_pose(4)
+    (ia, da), (ib, _) = world.render_rgbd(*pa), world.render_rgbd(*pb)
+    ua, ub = world.correspondences(pa, pb, da, 160, np.random.default_rng(0))
+    batch = (ia, ib, ua[:96], ub[:96], world.corner_cells(*pa), world.corner_cells(*pb))
+    net0 = ST.init_net("cpu")
+    out = []
+    for dev, dtype in (("cpu", torch.float64), (cuda, torch.float32)):
+        net = ST.trainable_copy(net0, dev).to(dtype)
+        for k, p in net.named_parameters():
+            p.requires_grad_(k.startswith(ST._LOCAL_PREFIXES))
+        t = [torch.as_tensor(x, device=dev) for x in batch]
+        t = [x.to(dtype) if x.is_floating_point() else x for x in t]
+        loss = ST.loss_fn(net, *t, (128, 160), 1.0)
+        loss.backward()
+        out.append((float(loss.detach()), {k: p.grad.double().cpu()
+                                           for k, p in net.named_parameters()
+                                           if p.grad is not None}))
+    (lc, gc), (lg, gg) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    assert gc.keys() == gg.keys() and len(gc) == len(ST.local_parameters(net0))
+    for k in gc:
+        err = float((gg[k] - gc[k]).abs().max())
+        assert err <= 1e-4 * float(gc[k].abs().max()), (k, err)
+
+
+def test_dist_lm_step_on_the_card_matches_the_cpu(cuda):
+    """One distributed BA step on 4 shards on the card against the same on
+    the CPU: the accept flag equal, poses within 1e-4, the cost within 1e-4
+    relative, landmarks within 1e-3 (index_add_ accumulates with atomics on
+    the card)."""
+    import numpy as np
+
+    from hfnet_slam_torch import lie
+    from hfnet_slam_torch.geometry import cameras
+    from hfnet_slam_torch.parallel import dist_ba, multihost
+
+    rng = np.random.default_rng(0)
+    cam = cameras.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
+    M, K = 256, 6
+    pts = np.stack([rng.uniform(-4, 4, M), rng.uniform(-3, 3, M), rng.uniform(6, 14, M)], 1)
+    R = lie.so3_exp(torch.tensor(rng.normal(0, 0.02, (K, 3)), dtype=torch.float32)).numpy()
+    t = (np.arange(K)[:, None] * np.array([0.3, 0.0, 0.0])).astype(np.float32)
+    kf, pt = (a.ravel() for a in np.meshgrid(np.arange(K), np.arange(M), indexing="ij"))
+    pc = np.einsum("eij,ej->ei", R[kf], pts[pt]) + t[kf]
+    uv = cam.project(torch.tensor(pc, dtype=torch.float32)).numpy() + \
+        rng.normal(0, 0.3, (len(kf), 2))
+    E = len(kf)
+    args = (4, K, 64, 512, R, t, np.arange(K) < 2, (pts + rng.normal(0, 0.5, pts.shape)).astype(
+        np.float32), kf, pt, uv.astype(np.float32), np.ones(E, np.float32), np.ones(E, bool))
+    res = {}
+    for dev in ("cpu", cuda):
+        prob, _ = dist_ba.partition_edges(*args, device=dev)
+        res[str(dev)] = dist_ba.dist_lm_step(cam.kind, cam.params.to(dev), prob,
+                                             multihost.Mesh(torch.device(dev), 4), lam=1e-3)
+    c, g = res["cpu"], res[str(cuda)]
+    assert bool(g[5]) == bool(c[5])
+    _close(g[0], c[0], 1e-4, "poses_R")
+    _close(g[1], c[1], 1e-4, "poses_t")
+    _close(g[2], c[2], 1e-3, "points")
+    assert abs(float(g[4]) - float(c[4])) <= 1e-4 * abs(float(c[4]))

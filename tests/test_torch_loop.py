@@ -334,10 +334,10 @@ def test_fuse_targets_banked_matches_reference():
 
 def test_run_global_ba_matches_reference(tmp_path):
     """tests/test_gba.py's synthetic 60-keyframe ring, past every single-
-    solver cap: the reference solves it through its distributed Schur path,
-    the port through its single solver sized to the whole problem (the same
-    math). Float32 LM with sums in another order: poses within 1e-3 of the
-    reference's, and both improve the mean camera error threefold."""
+    solver cap: both packages solve it through their distributed Schur path
+    on a one-shard mesh. Float32 LM with sums in another order: poses within
+    1e-3 of the reference's, and both improve the mean camera error
+    threefold."""
     from test_gba import _pose_err, circle_store
     from hfnet_slam_tpu.slam.local_mapping import LocalMapper as JMapper
     from hfnet_slam_tpu.slam.local_mapping import MapperConfig as JMapperConfig

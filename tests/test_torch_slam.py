@@ -191,8 +191,13 @@ def test_imu_and_stereo_entry_points_raise():
     assert st == 0 and sys_s.tracker.state == 0  # no close depth: no map yet
     st, _, _ = sys_s.track_rgbd((R, t), np.full((480, 640), 4.0, np.float32), 0.05)
     assert st == 1 and int(sys_s.store.kf_valid.sum()) == 1  # a metric map at once
-    with pytest.raises(NotImplementedError, match="item 17"):
-        sys_t.install_mesh(None)
+    # the mesh layer is ported (item 17): install_mesh wires the mapper and
+    # every map of the atlas
+    from hfnet_slam_torch.parallel.multihost import Mesh
+    mesh = Mesh(torch.device("cpu"), 2)
+    sys_t.install_mesh(mesh, dist_min_kfs=12, retrieval_min_kfs=16)
+    assert sys_t.mapper.mesh is mesh and sys_t.mapper.dist_min_kfs == 12
+    assert sys_t.store.retrieval_mesh is mesh and sys_t.store.retrieval_min_kfs == 16
     # relocalization is ported: on an empty map it finds no candidate
     assert sys_t.tracker._relocalize(Frame(feats=ext(*browse_pose(0)), timestamp=0.0)) is False
 

@@ -201,7 +201,8 @@ def _chunk_scene(n_kf=100, steps=10, dt=0.01, n_slots=64):
 def test_full_inertial_ba_chunked_sweep_within_bound_of_the_joint_solve():
     """Past fiba_max_joint with fiba_dist=False, full_inertial_ba sweeps
     overlapping chunks; with fiba_dist=True it solves the one joint problem
-    on the device (what the reference hands to its distributed solver).
+    through the distributed VI solver on a one-shard mesh, as the reference
+    does.
     tests/test_fiba_chunked.py's bounds: both improve on the perturbed map,
     the joint solve is at least as accurate, and the sweep lands within
     0.03 m mean camera-centre deviation of it."""
@@ -233,6 +234,7 @@ def test_full_inertial_ba_chunked_sweep_within_bound_of_the_joint_solve():
     c_chunk, err_chunk, st_chunk = run(False)
     c_joint, err_joint, st_joint = run(True)
     assert st_chunk.get("fiba_chunks", 0) >= 4 and st_joint.get("fiba_chunks", 0) == 0
+    assert st_joint.get("dist_fiba") == 1 and "dist_fiba" not in st_chunk
     assert err_chunk < 0.7 * pre_err and err_joint < 0.7 * pre_err, (err_chunk, err_joint)
     assert err_joint <= err_chunk + 1e-4, (err_joint, err_chunk)
     assert float(np.mean(np.linalg.norm(c_chunk - c_joint, axis=1))) < 0.03
