@@ -111,10 +111,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      one train step's CUDA-event ms with its forward / backward / Adam split,
      its kernels by torch.profiler and its float32 bound; passes with no
      frame lost, >= 90% tracked, >= 3 keyframes, ATE < 0.35 x the path and
-     the last loss < 0.6 x the first. Then frames 0 and 4 through the gated
-     mutual matcher on the trained and on the seed-0 descriptors: the share
-     of matches within 3 px of the true correspondence, and row_top2 held
-     exactly to its plain version on the trained ones;
+     the last loss < 0.6 x the first. The run also records the mapping
+     queue's length at each keyframe decision and the mapper's ms per
+     keyframe beside the tracker's ms per frame (`pace`). Then frames 0 and
+     4 through the gated mutual matcher on the trained and on the seed-0
+     descriptors: the share of matches within 3 px of the true
+     correspondence, and row_top2 held exactly to its plain version on the
+     trained ones;
  18. mesh: phase 5's final map solved by global BA three ways on copies of
      it: the single solver sized to the map (the port's earlier route),
      the distributed Schur solver on the one-shard default mesh (the
@@ -125,18 +128,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
      within 2e-3 m (tests/test_torch_parallel.py's TOL_MESH). Then
      install_mesh on a 4-shard mesh and one retrieval against the unmeshed
      scan: equal scores and candidates. NCCL across cards is not checked
-     on one card.
+     on one card;
+ 19. stream: phase 9's settings file and 40-frame sequence through
+     examples/run_stream.build_system's --settings path (HF-Net at
+     752x480, seed-0 weights, async mapping) behind a SLAMStreamServer on
+     127.0.0.1 with the web viewer started: the 40 frames streamed as uint8
+     images by a StreamClient, each answer a known state, each pose equal to
+     the system's trajectory entry to the wire's 6 decimals, row_top2 at
+     least twice on the server's handler thread (the first call re-checked,
+     no index differing), each round trip's ms (p50, p99) beside phase 9's
+     frame_total; after finish() the viewer's state.json at 40 frames and
+     the store's keyframe count; the step gate (no answer within 1 s while
+     armed, one within 30 s of a step) and a cross-origin POST refused with
+     403. Then examples/run_synthetic.main on the corridor scene, 80 frames:
+     tracked within 2 frames of the reference's 43 and ATE <= max(2 x its
+     0.00186 m, 0.01 m).
 Phases 5, 6, 8 and 9 keep the inputs of their first loop-association,
 relocalization or matcher calls and, after the phase, hold the kernel against
 its plain version on them (matched indices that differ, and by how much in
 float64). The kernel's main-path launch counts are zeroed just before each
-of phases 4-18's paths and read just after. The line before the last is one JSON
+of phases 4-19's paths and read just after. The line before the last is one JSON
 object describing every kernel; the last line is {"ok": true, "device":
 {...}}. Needs one CUDA card and no network. Without a card, or without the
 repository beside it, it exits non-zero before printing a result.
 `--only kernel` runs phases 1-3, `--only vi` phases 1-3, 10 and 11,
-`--only stereo` phases 1-3 and 12-16, `--only cnn` phases 1-3 and 17, and
-`--only mesh` phases 1-3, 5 and 18; none prints the result lines.
+`--only stereo` phases 1-3 and 12-16, `--only cnn` phases 1-3 and 17,
+`--only mesh` phases 1-3, 5 and 18, and `--only stream` phases 1-3 and 19;
+none prints the result lines.
 """
 from __future__ import annotations
 
@@ -162,7 +180,7 @@ EXTRACT_MIN_SHARED = 0.99
 EXTRACT_TOL_XY = 1e-3
 EXTRACT_TOL_DESC = 1e-4
 SHIFT = (16, 8)  # px, (x, y): the second frame of the extraction phase
-# depth cuts that keep phases 4-18 inside the time limit: phase 8 drives the
+# depth cuts that keep phases 4-19 inside the time limit: phase 8 drives the
 # circuit's first 180 of 330 frames (phase 5 corrects at frames 126 and 152),
 # phase 11 the blackout plan's first 80 of 90 frames (recovered from frame
 # 70), phase 15 the stereo-inertial run's first 40 of 60 frames (the IMU
@@ -1448,7 +1466,7 @@ def phase_euroc_runner(torch, smi, async_sys):
         "row_top2_launches_by_thread": by_thread, "atlas_round_trip": atlas, "card": smi,
     }
     log("euroc runner: " + json.dumps(res))
-    return launches, by_shape, rech
+    return launches, by_shape, rech, res
 
 
 def _depth_browse(torch, smi, mode):
@@ -1852,9 +1870,39 @@ def phase_cnn(torch, smi):
     check(np.isfinite(losses).all(), "a non-finite training loss")
     step = _train_step_profile(torch, world)
 
+    # the mapping queue at each keyframe decision and the mapper's ms per
+    # keyframe beside the tracker's ms per frame (ROADMAP Queue 3 (f))
+    decisions = []
+    tracker = sys_.tracker
+    need_kf = tracker._need_new_keyframe
+
+    def need(frame):
+        queued = sys_.worker.queue_size()
+        out = need_kf(frame)
+        decisions.append((queued, bool(out)))
+        return out
+
+    tracker._need_new_keyframe = need
     reset_counts()  # count only the 120-frame run's launches
-    run = cnn_run(sys_, world, size["frames"])
+    with StageTimes(torch, {"mapper_keyframe": (sys_.mapper, "process_keyframe"),
+                            "track_frame": (sys_, "track_features")}, fence=False) as st:
+        run = cnn_run(sys_, world, size["frames"])
     launches, by_shape = read_counts()
+    del tracker._need_new_keyframe
+    pace = {
+        "queue_at_decision": [q for q, _ in decisions],
+        "queue_at_keyframe": [q for q, k in decisions if k],
+        "decisions": len(decisions), "keyframes_made": sum(k for _, k in decisions),
+        "mapper_keyframe_ms": {"n": len(st.ms["mapper_keyframe"]),
+                               "p50": float(np.percentile(st.ms["mapper_keyframe"], 50)),
+                               "mean": float(np.mean(st.ms["mapper_keyframe"]))},
+        "track_frame_ms": {"n": len(st.ms["track_frame"]),
+                           "p50": float(np.percentile(st.ms["track_frame"], 50)),
+                           "mean": float(np.mean(st.ms["track_frame"]))},
+    }
+    check(pace["mapper_keyframe_ms"]["n"] >= 1 and pace["track_frame_ms"]["n"] == size["frames"],
+          f"phase 17's pace counters saw {pace['mapper_keyframe_ms']['n']} keyframes and "
+          f"{pace['track_frame_ms']['n']} frames")
     states = run.pop("states")
     inliers = run.pop("inliers")
     est_ok = "ate_cnn_m" in run
@@ -1883,7 +1931,7 @@ def phase_cnn(torch, smi):
         "train_step": step, "states": states, "inliers": inliers,
         "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape,
         "matcher_trained": trained, "matcher_seed0": seed0,
-        "matcher_call_launches": n_call, "card": smi,
+        "matcher_call_launches": n_call, "pace": pace, "card": smi,
     }
     log("cnn: " + json.dumps(res))
     check(run["cnn_lost"] == 0, f"{run['cnn_lost']} frames LOST")
@@ -2012,14 +2060,162 @@ def phase_mesh(torch, smi, loop_sys):
     return launches, by_shape, res
 
 
+# ---------------------------------------------------------------------------
+# the live frontends (phase 19)
+# ---------------------------------------------------------------------------
+
+STREAM_FRAMES = 40
+# examples/run_synthetic.py --scene corridor --frames 80, the JAX reference on
+# the CPU: 43 frames tracked, scale-corrected ATE 0.0018556765991241207 m
+CORRIDOR_REFERENCE = (43, 0.0018556765991241207)
+
+
+def _http(url, payload=None, origin=None, timeout=10):
+    """GET (payload None) or POST a JSON payload: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if payload is None else
+                                 json.dumps(payload).encode(),
+                                 method="GET" if payload is None else "POST")
+    if origin is not None:
+        req.add_header("Origin", origin)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def phase_stream(torch, smi, euroc_frame_ms=None):
+    """The socket stream server on phase 9's synthetic EuRoC sequence (HF-Net
+    at 752x480, seed-0 weights, async mapping) through run_stream's
+    --settings path, with the web viewer and its step gate; then
+    run_synthetic's corridor scene."""
+    from hfnet_slam_torch.examples import run_stream, run_synthetic
+    from hfnet_slam_torch.scenes import write_euroc_sequence
+    from hfnet_slam_torch.slam.tracking import _STATE_NAMES
+    from hfnet_slam_torch.utils.datasets import load_euroc
+    from hfnet_slam_torch.utils.stream import SLAMStreamServer, StreamClient
+
+    n = STREAM_FRAMES
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_dir, cfg, stamps = write_euroc_sequence(tmp, n)
+        seq = load_euroc(seq_dir)
+        images = [np.round(seq.image(i)).astype(np.uint8) for i in range(n)]
+        sys_ = run_stream.build_system(run_stream.parse_args(["--settings", cfg]))
+    check(sys_.device.type == "cuda" and sys_.worker is not None,
+          "run_stream's --settings system is not the async card system")
+    server = SLAMStreamServer(sys_, port=0)
+    viewer = sys_.start_webviewer(min_period=0)
+    cli = StreamClient(*server.address, timeout=600.0)
+    answers, trip_ms = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    with MatcherCalls(lambda dB: True) as calls:
+        for i in range(n):
+            t0 = time.perf_counter()
+            answers.append(cli.send_image(images[i], float(stamps[i])))
+            trip_ms.append((time.perf_counter() - t0) * 1e3)
+    launches, by_shape = read_counts()
+    by_thread = read_thread_counts()
+    on_handler = sum(v for name, shapes in by_thread.items()
+                     if "process_request_thread" in name for v in shapes.values())
+    sys_.finish()
+
+    check(len(answers) == n, f"{len(answers)} answers for {n} frames")
+    check(all(a["state"] in _STATE_NAMES.values() for a in answers),
+          f"an unknown state: {sorted({a['state'] for a in answers})}")
+    posed = [a for a in answers if a["R"] is not None]
+    traj = {round(e.ts, 6): e for e in sys_.tracker.trajectory}
+    check(len(posed) == len(sys_.tracker.trajectory) >= 1,
+          f"{len(posed)} answers with a pose, {len(sys_.tracker.trajectory)} trajectory entries")
+    for a in posed:
+        e = traj.get(round(a["ts"], 6))
+        check(e is not None and np.array_equal(np.asarray(a["R"]),
+                                               np.round(e.R.astype(np.float64), 6))
+              and np.array_equal(np.asarray(a["t"]), np.round(e.t.astype(np.float64), 6)),
+              f"the answer at ts {a['ts']} is not the trajectory's pose")
+    check(on_handler >= 2, f"row_top2 launched {on_handler} times on the server's handler "
+          f"thread, want >= 2 ({by_thread})")
+    rech = recheck(torch, "stream server", calls.first, exact=True)
+
+    viewer.publish(sys_.store, sys_.tracker)
+    code, body = _http(viewer.url + "state.json")
+    state = json.loads(body)
+    n_kf = int(sys_.store.kf_valid.sum())
+    check(code == 200 and state["frames"] == n and state["n_kf"] == n_kf,
+          f"viewer state frames {state.get('frames')} n_kf {state.get('n_kf')}, "
+          f"want {n} and {n_kf}")
+
+    # the step gate: a frame sent with the gate armed gets no answer until a
+    # step is posted
+    check(_http(viewer.url + "control", {"cmd": "step_mode", "on": True})[0] == 200,
+          "step_mode refused")
+    got = []
+    gated = threading.Thread(target=lambda: got.append(
+        cli.send_image(images[-1], float(stamps[-1]) + 0.05)), daemon=True)
+    t_sent = time.perf_counter()
+    gated.start()
+    gated.join(timeout=1.0)
+    check(not got, "a frame was answered while the step gate was armed")
+    check(_http(viewer.url + "control", {"cmd": "step"})[0] == 200, "step refused")
+    gated.join(timeout=30.0)
+    gate_ms = (time.perf_counter() - t_sent) * 1e3
+    check(len(got) == 1, "no answer within 30 s of the step")
+    foreign = _http(viewer.url + "control", {"cmd": "release"}, origin="http://example.com")[0]
+    check(foreign == 403, f"a cross-origin POST got {foreign}, want 403")
+    viewer.release()
+    cli.close()
+    server.close()
+    sys_.shutdown()
+    check(not viewer._thread.is_alive(), "the viewer thread outlived shutdown")
+
+    # the monocular main path's example on its corridor scene
+    printed = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        corridor = run_synthetic.main(["--scene", "corridor", "--frames", "80"])
+    corridor_s = time.perf_counter() - t0
+    n_corr, shapes_corr = read_counts()
+    for line in printed.getvalue().splitlines():
+        log(f"  run_synthetic: {line}")
+
+    res = {
+        "frames": n, "answers_with_pose": len(posed), "keyframes": n_kf,
+        "map_points": int(sys_.store.mp_valid.sum()),
+        "states": [a["state"] for a in answers],
+        "round_trip_ms": {"p50": float(np.percentile(trip_ms, 50)),
+                          "p99": float(np.percentile(trip_ms, 99)),
+                          "p50_from_frame_5": float(np.percentile(trip_ms[5:], 50)),
+                          "first": trip_ms[0], "each": trip_ms},
+        "euroc_runner_frame_total_ms": euroc_frame_ms,
+        "gate_answer_ms": gate_ms, "viewer_state": {k: state[k] for k in ("frames", "n_kf",
+                                                                          "n_mp", "state")},
+        "row_top2_launches": launches, "row_top2_launches_by_shape": by_shape,
+        "row_top2_launches_by_thread": by_thread, "on_handler_thread": on_handler,
+        "corridor": {**corridor, "seconds": corridor_s, "reference": CORRIDOR_REFERENCE,
+                     "row_top2_launches": n_corr},
+        "card": smi,
+    }
+    log("stream: " + json.dumps(res))
+    ref_n, ref_ate = CORRIDOR_REFERENCE
+    check(corridor["ate_m"] is not None and abs(corridor["tracked"] - ref_n) <= 2,
+          f"corridor tracked {corridor['tracked']} of 80, the reference {ref_n}")
+    check(corridor["ate_m"] <= max(2 * ref_ate, 0.01),
+          f"corridor ATE {corridor['ate_m']} m > max(2 x {ref_ate}, 0.01)")
+    return launches, by_shape, by_thread, rech, n_corr, shapes_corr
+
+
 def main(argv=None):
     import argparse
 
     ap = argparse.ArgumentParser(description="chip smoke test of the port (one GPU)")
-    ap.add_argument("--only", choices=("kernel", "vi", "stereo", "cnn", "mesh"),
+    ap.add_argument("--only", choices=("kernel", "vi", "stereo", "cnn", "mesh", "stream"),
                     help="run phases 1-3 (with 'vi' also phases 10-11, with 'stereo' phases "
-                    "12-16, with 'cnn' phase 17, with 'mesh' phases 5 and 18) and stop, "
-                    "without the result lines")
+                    "12-16, with 'cnn' phase 17, with 'mesh' phases 5 and 18, with 'stream' "
+                    "phase 19) and stop, without the result lines")
     args = ap.parse_args(argv)
     import torch
 
@@ -2041,6 +2237,8 @@ def main(argv=None):
         phase_cnn(torch, smi)
     if args.only == "mesh":
         phase_mesh(torch, smi, phase_loop(torch, smi)[4])
+    if args.only == "stream":
+        phase_stream(torch, smi)
     if args.only:
         log(f"chip_smoke: --only {args.only}: those phases passed; no result printed")
         return 0
@@ -2057,7 +2255,7 @@ def main(argv=None):
     n_async, shapes_async, threads_async, rech_async, async_sys = \
         phase_loop_async(torch, smi, loop_res)
     t5 = time.perf_counter()
-    n_euroc, shapes_euroc, rech_euroc = phase_euroc_runner(torch, smi, async_sys)
+    n_euroc, shapes_euroc, rech_euroc, euroc_res = phase_euroc_runner(torch, smi, async_sys)
     t6 = time.perf_counter()
     n_vi, shapes_vi, _ = phase_vi(torch, smi)
     t7 = time.perf_counter()
@@ -2068,12 +2266,15 @@ def main(argv=None):
     n_cnn, shapes_cnn, n_cnn_call, shapes_cnn_call, rech_cnn, _ = phase_cnn(torch, smi)
     t10 = time.perf_counter()
     n_mesh, shapes_mesh, _ = phase_mesh(torch, smi, loop_sys)
+    t11 = time.perf_counter()
+    n_stream, shapes_stream, threads_stream, rech_stream, n_corr, shapes_corr = phase_stream(
+        torch, smi, euroc_res["frame_total_ms"])
     log(f"phase seconds: browse {t1 - t0:.1f}, loop {t2 - t1:.1f}, "
         f"relocalization {t3 - t2:.1f}, extraction {t4 - t3:.1f}, loop async {t5 - t4:.1f}, "
         f"euroc runner {t6 - t5:.1f}, vi {t7 - t6:.1f}, vi async {t8 - t7:.1f}, "
         + ", ".join(f"{k} {v:.1f}" for k, v in depth["seconds"].items())
-        + f", cnn {t10 - t9:.1f}, mesh {time.perf_counter() - t10:.1f}"
-        + f"; phases 4-18 {time.perf_counter() - t0:.1f}")
+        + f", cnn {t10 - t9:.1f}, mesh {t11 - t10:.1f}, stream {time.perf_counter() - t11:.1f}"
+        + f"; phases 4-19 {time.perf_counter() - t0:.1f}")
 
     # the browse shape leads; the loop-association shapes follow under
     # "shapes". Paths are main-path runs; "relocalization_calls" is the part
@@ -2082,34 +2283,39 @@ def main(argv=None):
     # two frames, which is not a main-path run and not in "launches"; "cnn"
     # is phase 17's 120-frame run, "cnn_matcher_call" its direct calls on
     # two frames' descriptors (not in "launches"), "mesh" phase 18's
-    # global BAs and retrieval
+    # global BAs and retrieval, "stream" phase 19's 40 frames through the
+    # socket server and "synthetic_corridor" its run_synthetic run
     kern = {
         "name": "row_top2", "route": "cuda",
         "source": "hfnet_slam_torch/csrc/row_top2.cu",
         "replaces": "hfnet_slam_tpu/ops/pallas_match.py:52",
         "launches": (n_browse + n_loop + n_reloc + n_track + n_async + n_euroc + n_vi + n_via
-                     + sum(depth["launches"].values()) + n_cnn + n_mesh),
+                     + sum(depth["launches"].values()) + n_cnn + n_mesh + n_stream + n_corr),
         "launches_by_path": {"browse": n_browse, "loop": n_loop, "relocalization": n_reloc,
                              "relocalization_calls": n_reloc_calls,
                              "extraction_track": n_track, "extraction_matcher_call": n_call,
                              "loop_async": n_async, "euroc_runner": n_euroc, "vi": n_vi,
                              "vi_async": n_via, **depth["launches"], "cnn": n_cnn,
-                             "cnn_matcher_call": n_cnn_call, "mesh": n_mesh},
+                             "cnn_matcher_call": n_cnn_call, "mesh": n_mesh,
+                             "stream": n_stream, "synthetic_corridor": n_corr},
         "launches_by_shape": {"browse": shapes_browse, "loop": shapes_loop,
                               "relocalization": shapes_reloc, "extraction_track": shapes_track,
                               "extraction_matcher_call": shapes_call,
                               "loop_async": shapes_async, "euroc_runner": shapes_euroc,
                               "vi": shapes_vi, "vi_async": shapes_via, **depth["shapes"],
                               "cnn": shapes_cnn, "cnn_matcher_call": shapes_cnn_call,
-                              "mesh": shapes_mesh},
+                              "mesh": shapes_mesh, "stream": shapes_stream,
+                              "synthetic_corridor": shapes_corr},
         "loop_async_launches_by_thread": threads_async,
         "vi_async_launches_by_thread": threads_via,
+        "stream_launches_by_thread": threads_stream,
         "max_abs_err": max_err,
         **timings[0],
         "bound_peak": "3xTF32 on the tensor cores, 495 TFLOP/s",
         "shapes": timings[1:],
         "recheck_on_path_inputs": [rech_loop, rech_reloc, rech_track, rech_call, rech_async,
-                                   rech_euroc, rech_via, *depth["rechecks"], rech_cnn],
+                                   rech_euroc, rech_via, *depth["rechecks"], rech_cnn,
+                                   rech_stream],
     }
     log(smi)
     log(json.dumps({"kernels": [kern]}))

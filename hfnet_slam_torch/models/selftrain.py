@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import device as D
+from ..utils import log
 from ..ops import extract as X
 from .hfnet import DETECTOR_GRID, LOCAL_ENDPOINT, HFNet
 
@@ -107,7 +108,7 @@ def train_step(net, opt, img_a, img_b, uv_a, uv_b, tgt_a, tgt_b, hw, det_weight)
 
 
 def train(world, net=None, n_steps=300, n_pairs=192, lr=1e-3, det_weight=0.0,
-          pose_range=100, gap=(1, 6), seed=1, n_frames_cache=24, device=None):
+          pose_range=100, gap=(1, 6), seed=1, log_every=0, n_frames_cache=24, device=None):
     """Fine-tune HF-Net on a CylinderWorld on `device` (None means CUDA).
     `net` (default: init_net) is not modified. Returns (net', stats): net'
     frozen and in eval mode, ready for HFExtractor; stats holds `steps`,
@@ -116,7 +117,9 @@ def train(world, net=None, n_steps=300, n_pairs=192, lr=1e-3, det_weight=0.0,
 
     det_weight=0 trains descriptors only (the reference's default); > 0
     adds detector supervision. Views are rendered once, for a cache of
-    n_frames_cache poses over the first pose_range frames."""
+    n_frames_cache poses over the first pose_range frames. With log_every > 0
+    every log_every-th step's loss goes to utils/log.print_mess at NORMAL
+    (reading it waits for the device, so only when that level is on)."""
     dev = D.resolve(device)
     D.full_fp32()
     cam = world.cam
@@ -138,7 +141,7 @@ def train(world, net=None, n_steps=300, n_pairs=192, lr=1e-3, det_weight=0.0,
 
     t0 = time.perf_counter()
     losses = []
-    for _ in range(n_steps):
+    for it in range(n_steps):
         ka = int(rng.choice(len(keys) - 1))
         kb = min(ka + int(rng.integers(*gap)), len(keys) - 1)
         pa, da, ia, ta = cache[keys[ka]]
@@ -150,6 +153,8 @@ def train(world, net=None, n_steps=300, n_pairs=192, lr=1e-3, det_weight=0.0,
                                  torch.as_tensor(ua[:n_pairs], device=dev),
                                  torch.as_tensor(ub[:n_pairs], device=dev), ta, tb, hw,
                                  det_weight))
+        if log_every and it % log_every == 0 and log.get_level() >= log.NORMAL:
+            log.print_mess(f"selftrain step {it}: loss {float(losses[-1]):.3f}", log.NORMAL)
     losses = [float(v) for v in losses]  # waits for the device
     train_s = time.perf_counter() - t0
     model.requires_grad_(False)

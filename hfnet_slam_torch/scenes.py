@@ -791,13 +791,25 @@ def cnn_world(size, device=None) -> CylinderWorld:
     return CylinderWorld(cam, n_blobs=1400, seed=5)
 
 
+def cnn_spec(n_slots, k_max=128, m_max=16384):
+    """bench.py's RGB-D SystemConfig of the CNN run (:790-812) as plain
+    data: loop closing off, 0.1 m virtual baseline, async mapping, the
+    reference's 0.75 / 0.6 match gates."""
+    return {
+        "system": dict(k_max=k_max, m_max=m_max, n_slots=n_slots, desc_dim=256, gdesc_dim=4096,
+                       loop_closing=False, baseline=0.1, async_mapping=True),
+        "tracker": dict(local_mp_cap=2048, th_high=0.75, th_low=0.6, motion_window=8.0,
+                        local_window=3.0, th_depth=30.0),
+        "mapper": dict(ba_kf_cap=16, ba_mp_cap=4096, ba_edge_cap=16384, tri_neighbors=5),
+    }
+
+
 def cnn_system(size, device=None):
     """bench.py's CNN-in-the-loop system at `size` (CNN_PRODUCTION or
     CNN_SMALL) on `device` (None means CUDA): HF-Net from the port's seed-0
     init (selftrain.init_net) fine-tuned on the world, behind the HF-Net
     extractor (675 or 400 features, threshold 0.003, 1024 slots), and
-    bench.py's RGB-D SystemConfig (:790-812: loop closing off, 0.1 m virtual
-    baseline, async mapping, the reference's 0.75 / 0.6 match gates).
+    bench.py's RGB-D SystemConfig (`cnn_spec`).
     Returns (SLAMSystem, CylinderWorld, the training's stats); drive it
     with `cnn_run`."""
     dev = resolve(device)
@@ -807,12 +819,9 @@ def cnn_system(size, device=None):
     W, H, pad = size["width"], size["height"], size["pad_to"]
     ext = HFExtractor(trained, (H, W), n_features=size["n_features"],
                       n_levels=size["n_levels"], pad_to=pad, threshold=0.003, device=dev)
-    cfg = SystemConfig(
-        k_max=128, m_max=16384, n_slots=pad, desc_dim=256, gdesc_dim=4096, loop_closing=False,
-        baseline=0.1, async_mapping=True,
-        tracker=TrackerConfig(local_mp_cap=2048, th_high=0.75, th_low=0.6, motion_window=8.0,
-                              local_window=3.0, th_depth=30.0),
-        mapper=MapperConfig(ba_kf_cap=16, ba_mp_cap=4096, ba_edge_cap=16384, tri_neighbors=5))
+    sp = cnn_spec(pad)
+    cfg = SystemConfig(**sp["system"], tracker=TrackerConfig(**sp["tracker"]),
+                       mapper=MapperConfig(**sp["mapper"]))
     return SLAMSystem(world.cam, ext, cfg, device=dev), world, stats
 
 

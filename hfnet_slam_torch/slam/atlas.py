@@ -29,6 +29,12 @@ class Atlas:
     def n_maps(self) -> int:
         return len(self.maps)
 
+    def index_of(self, store: MapStore) -> int:
+        """Position of `store` in maps, by identity: MapStore's dataclass
+        equality compares only the capacities, so list.index would return
+        the first map of the same size."""
+        return next(i for i, m in enumerate(self.maps) if m is store)
+
     def create_new_map(self) -> MapStore:
         """Store the current map and start a fresh one (CreateMapInAtlas)."""
         self.maps.append(MapStore(*self._caps))
@@ -39,6 +45,13 @@ class Atlas:
         """Discard the active map in place (ResetActiveMap)."""
         self.maps[self.active_idx] = MapStore(*self._caps)
         return self.active
+
+    def remove_bad_maps(self, min_kfs: int = 3):
+        """Drop stored maps too small to ever merge (Atlas::RemoveBadMaps);
+        the active map stays whatever its size."""
+        active = self.active
+        self.maps = [m for m in self.maps if m is active or m.kf_valid.sum() >= min_kfs]
+        self.active_idx = self.index_of(active)
 
     # ------------------------------------------------------------------
     # persistence (SaveAtlas / LoadAtlas)

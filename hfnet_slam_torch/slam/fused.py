@@ -278,6 +278,30 @@ def _triangulate_core(xn_k, desc_k, sig2_k, free_k, xn_j, desc_j, sig2_j, free_j
     return idx, good, p1
 
 
+def triangulate_pairs_batch(xn_k, desc_k, sig2_k, free_k, xn_j, desc_j, sig2_j, free_j,
+                            R21, t21, f_px, max_dist: float = 0.6, chi2_epi: float = 16.0,
+                            min_parallax_cos: float = 0.9998):
+    """CreateNewMapPoints over a padded neighbor batch, on host-packed
+    inputs (the banked path gathers them on the device): anchor keyframe
+    xn_k (N,2), desc_k (N,D), sig2_k (N,), free_k (N,); neighbors (B,N,...)
+    with padding rows all not free; R21 (B,3,3), t21 (B,3) anchor -> neighbor.
+    Returns idx (B,N) into the neighbor slots or -1, good (B,N), and p1
+    (B,N,3) in the anchor camera frame."""
+    return _triangulate_core(xn_k, desc_k, sig2_k, free_k, xn_j, desc_j, sig2_j, free_j,
+                             R21, t21, f_px, max_dist, chi2_epi, min_parallax_cos)
+
+
+def fuse_pairs_batch(cam_kind, cam_params, W, H, R_t, t_t, xy_t, desc_t, oct_t, free_t,
+                     cand_ids, m_pos, m_desc, m_valid, radius: float = 3.0,
+                     max_dist: float = 0.6):
+    """Matcher::Fuse over (target keyframe, source point set) pairs, on
+    host-packed inputs: target poses R_t (P,3,3), t_t (P,3) and keypoints
+    (P,N,...), candidate point ids cand_ids (P,C) (-1 padded) gathered from
+    m_pos / m_desc / m_valid. Returns idx (P,N) into the candidates or -1."""
+    return _fuse_core(cam_kind, cam_params, W, H, R_t, t_t, xy_t, desc_t, oct_t, free_t,
+                      cand_ids, m_pos, m_desc, m_valid, radius, max_dist)
+
+
 # ---------------------------------------------------------------------------
 # device-resident keyframe bank
 # ---------------------------------------------------------------------------

@@ -412,6 +412,16 @@ class MapStore:
     # ------------------------------------------------------------------
     # observations / covisibility
     # ------------------------------------------------------------------
+    def set_observation(self, kf, slot, mp_id):
+        """One observation (-1 clears it), with obs-count upkeep."""
+        old = self.kf_obs[kf, slot]
+        if old >= 0:
+            self.mp_obs_count[old] -= 1
+        self.kf_obs[kf, slot] = mp_id
+        self.mark_kf_obs_dirty(kf)
+        if mp_id >= 0:
+            self.mp_obs_count[mp_id] += 1
+
     def assign_observations(self, kf, slots, mp_ids):
         """Vectorized observation assignment with obs-count upkeep."""
         slots = np.asarray(slots, int)
@@ -484,6 +494,17 @@ class MapStore:
         self.mp_dmax[mp_ids] = dmax
         self.mp_dmin[mp_ids] = dmax / scale_factor ** (n_levels - 1)
         self.mark_points_dirty(mp_ids)
+
+    def refresh_point_descriptors(self, mp_ids, max_obs=8, device=None):
+        """The descriptor refresh in one call: gather_distinctive,
+        distinctive_kernel on `device` (None means CUDA), apply_distinctive.
+        Callers that hold the map lock use the three phases, so the kernel
+        runs off the lock."""
+        g = self.gather_distinctive(mp_ids, max_obs)
+        if g is None:
+            return
+        uniq, descs, mask = g
+        self.apply_distinctive(uniq, distinctive_kernel(descs, mask, device))
 
     def gather_distinctive(self, mp_ids, max_obs=8):
         """Phase 1 of the descriptor refresh (ComputeDistinctiveDescriptors,

@@ -34,6 +34,11 @@ frame carries no depth, so its edges carry no depth row.
 `install_mesh(mesh)` (a parallel/multihost.Mesh) routes big global BAs
 through the distributed Schur solver and large keyframe databases' place
 recognition through the sharded scan, in this map and every later one.
+
+`start_webviewer()` attaches the live in-browser viewer
+(utils/webviewer.WebViewer), or `system.viewer = LiveViewer(...)` the PNG one
+(utils/viewer.py): track_features hands it every frame first, and its step
+gate may hold the frame there; `shutdown()` releases and closes it.
 """
 from __future__ import annotations
 
@@ -123,6 +128,7 @@ class SLAMSystem:
         if self.loop_closer is not None:
             self.loop_closer.system = self  # enables cross-map merges
         self._traj_mark = 0
+        self.viewer = None  # utils/viewer.LiveViewer or utils/webviewer.WebViewer
         self.worker = None
         self.loop_worker = None
         self.gba_worker = None
@@ -212,7 +218,11 @@ class SLAMSystem:
         """Feed pre-extracted features (testing / offline pipelines), with the
         frame's per-slot depth (numpy, 0 = none), its IMU rows on a
         visual-inertial system, and on a fisheye rig the right frame's
-        (Features as numpy, left->right match) for the right bank."""
+        (Features as numpy, left->right match) for the right bank. An
+        attached viewer sees every frame first; its step gate may block
+        here."""
+        if self.viewer is not None:
+            self.viewer.on_frame(self.store, self.tracker)
         feats = feats.to(self.device)
         if self.cam.dist is not None:
             # depth was sampled at the raw pixel, where the sensor measured it
@@ -231,9 +241,24 @@ class SLAMSystem:
             if w is not None:
                 w.drain()
 
+    def start_webviewer(self, host="127.0.0.1", port=0, **kw):
+        """Start the live in-browser viewer (utils/webviewer.WebViewer; the
+        reference's Pangolin thread) and attach it as this system's frame
+        hook; in async mode it snapshots under the map lock. Returns the
+        viewer: open `viewer.url` in a browser."""
+        from ..utils.webviewer import WebViewer
+
+        lock = self.worker.map_lock if self.worker is not None else None
+        self.viewer = WebViewer(host=host, port=port, lock=lock, **kw)
+        return self.viewer
+
     def shutdown(self):
-        """System::Shutdown: drain and stop the worker threads, in the same
-        order."""
+        """System::Shutdown: release and close the viewer (a gated tracker
+        would hang the drain), then drain and stop the worker threads, in
+        finish()'s order."""
+        if self.viewer is not None and hasattr(self.viewer, "close"):
+            self.viewer.release()
+            self.viewer.close()
         for w in (self.worker, self.loop_worker, self.gba_worker):
             if w is not None:
                 w.drain()
@@ -306,7 +331,7 @@ class SLAMSystem:
             target.update_covisibility(b)
         # the target becomes active, the absorbed map is dropped
         self.atlas.maps = [m for m in self.atlas.maps if m is not active]
-        self.atlas.active_idx = self.atlas.maps.index(target)
+        self.atlas.active_idx = self.atlas.index_of(target)
         self._rewire(target)
 
         tr = self.tracker

@@ -281,3 +281,130 @@ def test_kf_bank_incremental_sync():
     np.testing.assert_array_equal(bank.obs.numpy(), store.kf_obs)
     np.testing.assert_allclose(bank.xn.numpy()[k], (store.kf_xy[k] - [320, 240]) / 450.0,
                                atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# host-packed batch wrappers and the map's one-shot helpers
+# ---------------------------------------------------------------------------
+def _host_bank(s, cam):
+    """The reference bank's tables as numpy (both packages read them)."""
+    from hfnet_slam_tpu.slam import fused as Jfused
+
+    bank = Jfused.get_kf_bank(s, cam)
+    bank.sync()
+    xy, desc, oc, mask, xn, obs = (np.asarray(a) for a in bank.snapshot())
+    return xy, desc, oc.astype(np.float32), mask, xn, obs
+
+
+def test_triangulate_pairs_batch_matches_reference(carried):
+    from hfnet_slam_tpu.slam import fused as Jfused
+
+    s, _, cam = _fresh_reference_store(carried)
+    k = int(np.nonzero(s.kf_valid)[0].max())
+    obs_k = s.kf_obs[k]
+    s.kf_obs[np.isin(s.kf_obs, obs_k[obs_k >= 0][:150])] = -1
+    _, desc, oc, mask, xn, obs = _host_bank(s, cam)
+    free = mask & (obs < 0)
+    B = 8
+    nbr = np.full(B, -1, np.int64)
+    R21 = np.tile(np.eye(3, dtype=np.float32), (B, 1, 1))
+    t21 = np.zeros((B, 3), np.float32)
+    for bi, j in enumerate(_neighbors(s, k)):
+        nbr[bi] = j
+        R21[bi] = s.kf_R[j] @ s.kf_R[k].T
+        t21[bi] = s.kf_t[j] - R21[bi] @ s.kf_t[k]
+    safe = np.clip(nbr, 0, len(desc) - 1)
+    args = (xn[k], desc[k], 1.2 ** (2.0 * oc[k]), free[k], xn[safe], desc[safe],
+            1.2 ** (2.0 * oc[safe]), free[safe] & (nbr >= 0)[:, None], R21, t21)
+    idx_j, good_j, p_j = (np.asarray(a) for a in Jfused.triangulate_pairs_batch(*args, 450.0))
+    idx_t, good_t, p_t = (a.numpy() for a in Tfused.triangulate_pairs_batch(
+        *(T(a) for a in args), 450.0))
+    assert good_j.sum() > 50
+    np.testing.assert_array_equal(idx_t, idx_j)
+    np.testing.assert_array_equal(good_t, good_j)
+    np.testing.assert_allclose(p_t[good_j], p_j[good_j], rtol=1e-3, atol=1e-4)
+
+
+def test_fuse_pairs_batch_matches_reference(carried):
+    from hfnet_slam_tpu.slam import fused as Jfused
+
+    s, _, cam = _fresh_reference_store(carried)
+    k = int(np.nonzero(s.kf_valid)[0].max())
+    s.kf_obs[k, np.nonzero(s.kf_obs[k] >= 0)[0][:150]] = -1
+    xy, desc, oc, mask, _, obs = _host_bank(s, cam)
+    pairs = [(k, j) for j in _neighbors(s, k)] + [(j, k) for j in _neighbors(s, k)]
+    P = 16
+    tgt = np.zeros(P, np.int64)
+    cand = np.full((P, obs.shape[1]), -1, np.int64)
+    R_t = np.tile(np.eye(3, dtype=np.float32), (P, 1, 1))
+    t_t = np.zeros((P, 3), np.float32)
+    free_t = np.zeros(mask.shape[1:], bool)[None].repeat(P, 0)
+    for pi, (a, b) in enumerate(pairs):
+        tgt[pi] = a
+        cand[pi] = obs[b]
+        free_t[pi] = mask[a] & (obs[a] < 0)
+        R_t[pi], t_t[pi] = s.kf_R[a], s.kf_t[a]
+    dm = Jfused.get_device_map(s)
+    dm.sync()
+    m_pos, m_desc, m_valid = (np.asarray(a) for a in (dm.pos, dm.desc, dm.valid))
+    args = (R_t, t_t, xy[tgt], desc[tgt], oc[tgt].astype(np.int32), free_t, cand, m_pos,
+            m_desc, m_valid)
+    idx_j = np.asarray(Jfused.fuse_pairs_batch(cam.kind, cam.params, 640.0, 480.0, *args,
+                                               radius=6.0, max_dist=0.75))
+    from hfnet_slam_torch.geometry import cameras as Tcam
+
+    ct = Tcam.pinhole(450.0, 450.0, 320.0, 240.0, 640, 480, device="cpu")
+    idx_t = Tfused.fuse_pairs_batch(ct.kind, ct.params, 640.0, 480.0, *(T(a) for a in args),
+                                    radius=6.0, max_dist=0.75).numpy()
+    assert (idx_j >= 0).sum() > 50
+    np.testing.assert_array_equal(idx_t, idx_j)
+
+
+def test_set_observation_and_descriptor_refresh_match_reference(carried):
+    """MapStore.set_observation and the one-shot refresh_point_descriptors
+    on both packages' copies of the carried map: every array equal."""
+    s, p, _ = _fresh_reference_store(carried)
+    k = int(np.nonzero(s.kf_valid)[0].max())
+    slots = np.nonzero(s.kf_obs[k] >= 0)[0]
+    free = np.nonzero(s.kf_obs[k] < 0)[0]
+    moves = [(k, int(slots[0]), -1), (k, int(free[0]), int(s.kf_obs[k, slots[1]])),
+             (k, int(slots[2]), int(s.kf_obs[k, slots[3]]))]
+    for st in (s, p):
+        for kf, slot, mp in moves:
+            st.set_observation(kf, slot, mp)
+    np.testing.assert_array_equal(p.kf_obs, s.kf_obs)
+    np.testing.assert_array_equal(p.mp_obs_count, s.mp_obs_count)
+    ids = np.nonzero(s.mp_valid)[0]
+    s.refresh_point_descriptors(ids)
+    p.refresh_point_descriptors(ids, device="cpu")
+    assert (s.mp_obs_count[ids] >= 2).sum() > 50
+    np.testing.assert_array_equal(p.mp_desc, s.mp_desc)
+    assert p.consume_dirty_points() is not None
+
+
+@pytest.mark.parametrize("active", [0, 1, 2, 3])
+def test_remove_bad_maps_matches_reference(active):
+    """Atlas.remove_bad_maps keeps the same maps as the reference's and the
+    map that was active stays active. The reference finds the active map
+    again by dataclass equality, which compares only the capacities, so it
+    points at the first kept map (ROADMAP Queue 3 (l)); the port keeps it
+    by identity."""
+    from hfnet_slam_tpu.slam.atlas import Atlas as JAtlas
+    from hfnet_slam_torch.slam.atlas import Atlas as TAtlas
+
+    out = []
+    for cls in (JAtlas, TAtlas):
+        a = cls(8, 16, 8, 8, 8)
+        for _ in range(3):
+            a.create_new_map()
+        for m, n in zip(a.maps, (1, 4, 0, 3)):
+            m.kf_valid[:n] = True
+        a.active_idx = active
+        keep = a.active
+        a.remove_bad_maps()
+        out.append(([int(m.kf_valid.sum()) for m in a.maps], a.active_idx,
+                     next(i for i, m in enumerate(a.maps) if m is keep)))
+    (kfs_j, idx_j, _), (kfs_t, idx_t, want) = out
+    assert kfs_t == kfs_j
+    assert idx_t == want
+    assert idx_j == (want if active in (0, 1) else 0)

@@ -73,3 +73,16 @@ def test_no_port_module_imports_yaml_or_pil():
              "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('yaml', 'PIL'))\n"
              "sys.exit(3 if bad else 0)")
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_frontend_modules_are_walked_without_jax():
+    """The stream server, the viewers and the frontends' entry points are
+    among the modules the probe imports (matplotlib, which the card's
+    machine lacks, is imported by viewer.render only)."""
+    want = ["hfnet_slam_torch.utils.stream", "hfnet_slam_torch.utils.viewer",
+            "hfnet_slam_torch.utils.webviewer", "hfnet_slam_torch.examples.run_stream",
+            "hfnet_slam_torch.examples.run_synthetic"]
+    r = _run(f"missing = [n for n in {want!r} if n not in names]\n"
+             "missing += sorted(k for k in sys.modules if k.startswith('matplotlib'))\n"
+             "if missing:\n    print(missing)\n    sys.exit(4)")
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -127,3 +127,26 @@ def test_lost_map_is_stored_and_merged_back():
     live = store.kf_obs[kfs]
     assert store.mp_valid[live[live >= 0]].all()
     assert sys_.tracker.store is store and sys_.loop_closer.store is store
+
+
+def test_merge_into_a_later_map_makes_it_active():
+    """With three maps of one size, a merge of the active map into map 1
+    leaves map 1 active. The reference re-finds the target with list.index,
+    whose dataclass equality compares only the capacities, and so activates
+    map 0 (slam/system.py:356, ROADMAP Queue 3 (l)); the port finds it by
+    identity (Atlas.index_of)."""
+    from hfnet_slam_torch.scenes import SMALL, browse_system
+    from hfnet_slam_torch.slam.map import MapStore as TStore
+
+    sys_, _ = browse_system(SMALL, "cpu")
+    rng = np.random.default_rng(0)
+    first, target, active = (_build(TStore, n, 48, 16, 128, rng) for n in (4, 6, 5))
+    sys_.atlas.maps = [first, target, active]
+    sys_.atlas.active_idx = 2
+    sys_._rewire(active)
+    k_new = sys_.execute_merge(1, 0, 0, np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                               1.0, [])
+    assert k_new is not False
+    assert sys_.atlas.n_maps() == 2 and sys_.atlas.active_idx == 1
+    assert sys_.store is target and sys_.tracker.store is target
+    assert int(target.kf_valid.sum()) == 11

@@ -262,3 +262,26 @@ def test_port_rgbd_tracking_with_the_trained_cnn(worlds):
     err = ate.ate_rmse(np.asarray(est), np.asarray(gtc), with_scale=False)
     path = np.linalg.norm(np.diff(np.asarray(gtc), axis=0), axis=1).sum()
     assert err < 0.35 * path, f"ATE {err:.3f} over {path:.2f} m"
+
+
+def test_train_logs_its_loss_every_n_steps(worlds):
+    """train(log_every=1) reports each step's loss through utils/log at
+    NORMAL (the reference's own log_every imports a function its log module
+    lacks: ROADMAP Queue 3 (g)); at QUIET it reports nothing."""
+    from hfnet_slam_torch.utils import log
+    from test_torch_utils import _log_records
+
+    records, h = _log_records(log)
+    try:
+        _, quiet = TS.train(worlds[1], n_steps=2, n_pairs=64, pose_range=20, n_frames_cache=4,
+                            log_every=1, device="cpu")
+        assert records == []
+        log.set_level("normal")
+        _, stats = TS.train(worlds[1], n_steps=3, n_pairs=64, pose_range=20, n_frames_cache=4,
+                            log_every=1, device="cpu")
+    finally:
+        log.logger.removeHandler(h)
+        log.set_level("quiet")
+    assert stats["steps"] >= 1 and len(records) == stats["steps"]
+    assert all(m.startswith("selftrain step ") for _, m in records)
+    assert records[0][1].endswith(f"loss {stats['losses'][0]:.3f}")

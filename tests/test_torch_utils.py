@@ -362,3 +362,53 @@ def test_run_euroc_on_a_synthetic_sequence_on_the_cpu(tmp_path, capsys):
     assert set(np.round(rows[:, 0], 6)) <= set(np.round(stamps, 6))
     assert "ATE RMSE" in text
     timings.reset()
+
+
+def _log_records(log):
+    import logging
+
+    records = []
+
+    class Cap(logging.Handler):
+        def emit(self, r):
+            records.append((r.levelno, r.getMessage()))
+
+    h = Cap()
+    log.logger.addHandler(h)
+    return records, h
+
+
+def test_leveled_logger_matches_reference():
+    """tests/test_utils.py:250-280 on the port, and the same levels, numbers
+    and stdlib severities as the reference's."""
+    import logging
+
+    from hfnet_slam_torch.utils import log
+    from hfnet_slam_tpu.utils import log as ref
+
+    for name in ("QUIET", "NORMAL", "VERBOSE", "VERY_VERBOSE", "DEBUG"):
+        assert getattr(log, name) == getattr(ref, name)
+    assert log._PY_LEVEL == ref._PY_LEVEL and log._NAMES == ref._NAMES
+    assert log.get_level() == log.QUIET
+    records, h = _log_records(log)
+    try:
+        log.set_level("quiet")
+        log.print_mess("hidden", log.NORMAL)
+        log.warn("always")
+        assert records == [(logging.WARNING, "always")]
+        log.set_level("normal")
+        log.print_mess("shown", log.NORMAL)
+        log.print_mess("hidden2", log.VERBOSE)
+        assert [m for _, m in records] == ["always", "shown"]
+        log.set_level(log.DEBUG)
+        assert log.get_level() == log.DEBUG
+        log.print_mess("deep", log.DEBUG)
+        assert records[-1] == (logging.DEBUG - 2, "deep")
+        for level in (logging.INFO, log.VERBOSE, "very_verbose"):
+            log.set_level(level)
+            ref.set_level(level)
+            assert (log.get_level(), log.logger.level) == (ref.get_level(), ref.logger.level)
+    finally:
+        log.logger.removeHandler(h)
+        log.set_level("quiet")
+        ref.set_level("quiet")
