@@ -1,9 +1,13 @@
-"""Device selection and float32 precision policy shared by the entry points."""
+"""Device selection, the float32 precision policy and the one host-to-device
+upload helper, shared by the entry points."""
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
+
+from .utils.timing import timings
 
 # kernels the port compiles at first use (nvcc, g++) go here; .gitignore
 # lists it
@@ -29,3 +33,15 @@ def full_fp32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def upload(x, dtype=None, device=None) -> torch.Tensor:
+    """Host array (or CPU tensor) -> a COPY on `device`, blocking, in `dtype`
+    (None keeps x's). Never a view of x, on the CPU too: work that runs off
+    the map lock would otherwise read what the mapping worker writes into
+    the store's arrays. Its bytes count as `h2d_bytes` while the recorder
+    is on."""
+    t = torch.tensor(np.asarray(x), dtype=dtype, device=device)
+    if timings.on:
+        timings.count("h2d_bytes", t.nbytes)
+    return t

@@ -3,8 +3,9 @@
 Counterpart of examples/run_euroc.py (the reference's mono_euroc +
 eval_euroc.sh): the settings file builds the camera and the HF-Net pyramid
 extractor, the system runs with the async mapping/loop/GBA pipeline, every
-frame goes through `track_monocular` under timing sections, and after
-`finish()` the TUM trajectory is written; with `--gt` (TUM format) the
+frame goes through `track_monocular` with the port's recorder on
+(utils/timing.py: the runner's `frame_total` and `load`, the program's spans),
+and after `finish()` the TUM trajectory is written; with `--gt` (TUM format) the
 Horn-aligned, scale-corrected ATE is printed.
 
     python3 -m hfnet_slam_torch.examples.run_euroc SEQ_DIR --config cfg.yaml \\
@@ -65,6 +66,7 @@ def main(argv=None):
                             n_levels=settings.n_levels, scale_factor=settings.scale_factor,
                             threshold=settings.threshold, pad_to=cfg.n_slots, device=dev)
     slam = SLAMSystem(cam, extractor, cfg, device=dev)
+    timings.enable()
     try:
         for i in range(n):
             with timings.section("frame_total"):
@@ -78,6 +80,7 @@ def main(argv=None):
         slam.save_trajectory(args.out)
     finally:
         slam.shutdown()
+        timings.disable()
     print(f"trajectory -> {args.out}")
     print(timings.report())
 

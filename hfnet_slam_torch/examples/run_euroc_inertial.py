@@ -11,8 +11,9 @@ so the ATE is printed without scale correction too.
 
 SEQ_DIR is .../MH_01_easy/mav0 with imu0/data.csv; the settings file carries
 the IMU.* keys and IMU.T_b_c1. Without `--weights` HF-Net has random
-weights from a fixed seed. The default device is CUDA. `main(argv)` returns
-the (shut down) SLAMSystem for inspection.
+weights from a fixed seed. The default device is CUDA. The port's recorder
+(utils/timing.py) is on for the run, and its report is printed. `main(argv)`
+returns the (shut down) SLAMSystem for inspection.
 """
 from __future__ import annotations
 
@@ -110,12 +111,14 @@ def main(argv=None):
     cfg = settings.make_system_config()
     extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev)
     slam = SLAMSystem(cam, extractor, cfg, imu_calib=settings.make_imu_calib(), device=dev)
+    timings.enable()
     try:
         run(slam, seq, n, settings.fps or 20.0)
         slam.finish()
         slam.save_trajectory(args.out)
     finally:
         slam.shutdown()
+        timings.disable()
     print(f"trajectory -> {args.out}")
     print(timings.report())
     report_ate(args.out, args.gt)

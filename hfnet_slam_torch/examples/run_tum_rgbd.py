@@ -12,8 +12,9 @@ from the first frame and the ATE is printed without scale correction.
 RGBD.DepthMapFactor (5000 for TUM) is applied once: the sequence divides the
 16-bit depth images by it, and the system takes those metres as they are
 (depth_factor 1). Without `--weights` HF-Net has random weights from a fixed
-seed. The default device is CUDA. Per frame the timing report holds
-`frame_total`, `load` (both images) and `extract` (HF-Net, device-synced).
+seed. The default device is CUDA. The run switches the port's recorder
+(utils/timing.py) on; its report holds the runner's `frame_total` and `load`
+(both images) and the program's spans (`frame`, `extract`, `track`, ...).
 `main(argv)` returns the (shut down) SLAMSystem.
 """
 from __future__ import annotations
@@ -31,19 +32,6 @@ def parse_args(argv=None):
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     return ap.parse_args(argv)
-
-
-class TimedExtractor:
-    """The extractor under a device-synced `extract` timing section."""
-
-    def __init__(self, extractor):
-        self.extractor = extractor
-
-    def __call__(self, image):
-        from ..utils.timing import timings
-
-        with timings.section("extract"):
-            return timings.block(self.extractor(image))
 
 
 def main(argv=None):
@@ -64,7 +52,8 @@ def main(argv=None):
     # the sequence already returns metres: scale once
     cfg = settings.make_system_config(dev, depth_factor=1.0)
     extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev)
-    slam = SLAMSystem(cam, TimedExtractor(extractor), cfg, device=dev)
+    slam = SLAMSystem(cam, extractor, cfg, device=dev)
+    timings.enable()
     try:
         for i in range(n):
             with timings.section("frame_total"):
@@ -78,6 +67,7 @@ def main(argv=None):
         slam.save_trajectory(args.out)
     finally:
         slam.shutdown()
+        timings.disable()
     print(f"trajectory -> {args.out}")
     print(timings.report())
     report_ate(args.out, args.gt)

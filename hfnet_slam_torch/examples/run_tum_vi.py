@@ -14,8 +14,9 @@ describes.
 SEQ_DIR is .../dataset-room1_512_16/mav0 (TUM-VI ships EuRoC's layout;
 --imu needs imu0/data.csv). `--stereo` adds cam1 as the right camera of the
 fisheye rig (Camera2.* and Stereo.T_c1_c2 in the settings): `track_stereo`,
-or with `--imu` `track_stereo_inertial`. `main(argv)` returns the (shut
-down) SLAMSystem.
+or with `--imu` `track_stereo_inertial`. The port's recorder
+(utils/timing.py) is on for the run, and its report is printed. `main(argv)`
+returns the (shut down) SLAMSystem.
 """
 from __future__ import annotations
 
@@ -59,12 +60,14 @@ def main(argv=None):
     extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev)
     slam = SLAMSystem(cam, extractor, cfg,
                       imu_calib=settings.make_imu_calib() if args.imu else None, device=dev)
+    timings.enable()
     try:
         run(slam, seq, n, settings.fps or 20.0, imu=args.imu, right=seq_r)
         slam.finish()
         slam.save_trajectory(args.out)
     finally:
         slam.shutdown()
+        timings.disable()
     print(f"trajectory -> {args.out}")
     print(timings.report())
     report_ate(args.out, args.gt)

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from .. import device as D
 from ..ops import extract as X
+from ..utils.timing import timings
 
 
 class Features(NamedTuple):
@@ -85,23 +86,28 @@ class HFExtractor:
 
     def __call__(self, image) -> Features:
         """image: (H,W) or (H,W,1) grayscale, uint8 or float in [0,255], a
-        numpy array or a tensor."""
-        image = torch.as_tensor(image)
-        if image.ndim == 3:
-            image = image[..., 0]
-        image = image[: self.image_hw[0], : self.image_hw[1]]
-        image = image.to(self.device).to(torch.float32)
-        with torch.no_grad():
-            return self._extract(image)
+        numpy array or a tensor. Spans: `extract`, with `extract.forward`
+        and `extract.post` for each level."""
+        with timings.span("extract"):
+            image = torch.as_tensor(image)
+            if image.ndim == 3:
+                image = image[..., 0]
+            image = image[: self.image_hw[0], : self.image_hw[1]]
+            image = D.upload(image, None, self.device) if image.device.type == "cpu" \
+                else image.to(self.device)
+            with torch.no_grad():
+                return self._extract(image.to(torch.float32))
 
     def _extract(self, image) -> Features:
         xs, ss, os_, ds, ms = [], [], [], [], []
         global_desc = None
         for lvl in range(self.n_levels):
-            scores_dense, desc_map, g = self._forward_level(lvl, image)
+            with timings.span("extract.forward"):
+                scores_dense, desc_map, g = self._forward_level(lvl, image)
             if g is not None:
                 global_desc = g
-            xy, sc, mk, desc = self._post_level(lvl, scores_dense, desc_map)
+            with timings.span("extract.post"):
+                xy, sc, mk, desc = self._post_level(lvl, scores_dense, desc_map)
             xs.append(xy)
             ss.append(sc)
             os_.append(torch.full((len(sc),), lvl, dtype=torch.int32, device=self.device))

@@ -30,13 +30,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from .. import lie
+from ..device import upload
 from ..geometry import cameras
 from ..optim import factors
 from ..optim.pose_opt import pose_optimize_core
+from ..utils.timing import timings
 
 _NEG = -1e9
 
@@ -62,7 +63,7 @@ class DeviceMap:
         self._upload_all()
 
     def _put(self, x):
-        return torch.from_numpy(np.array(x, copy=True)).to(self.device)
+        return upload(x, None, self.device)
 
     def _upload_all(self):
         s = self.store
@@ -74,15 +75,18 @@ class DeviceMap:
         self.valid = self._put(s.mp_valid)
 
     def sync(self):
-        """Bring the mirror up to date (under the map lock)."""
+        """Bring the mirror up to date (under the map lock); counts the rows
+        it uploaded as `mirror_rows` (-1 for the whole table)."""
         d = self.store.consume_dirty_points()
         if d is None:
             return
         if isinstance(d, str):  # 'all'
+            timings.count("mirror_rows", -1)
             self._upload_all()
             return
+        timings.count("mirror_rows", len(d))
         s = self.store
-        ids = torch.from_numpy(d.astype(np.int64)).to(self.device)
+        ids = upload(d, torch.int64, self.device)
         self.pos = self.pos.index_copy(0, ids, self._put(s.mp_pos[d]))
         self.desc = self.desc.index_copy(0, ids, self._put(s.mp_desc[d]))
         self.normal = self.normal.index_copy(0, ids, self._put(s.mp_normal[d]))
@@ -320,7 +324,7 @@ class DeviceKFBank:
         self._upload_all()
 
     def _put(self, x):
-        return torch.from_numpy(np.array(x, copy=True)).to(self.device)
+        return upload(x, None, self.device)
 
     def _xn(self, xy):
         return cameras.unproject(self.cam_kind, self.cam_params, xy)[..., :2]
@@ -342,7 +346,7 @@ class DeviceKFBank:
             self._upload_all()
             return
         if feat is not None:
-            ids = torch.from_numpy(feat.astype(np.int64)).to(self.device)
+            ids = upload(feat, torch.int64, self.device)
             r_xy = self._put(s.kf_xy[feat])
             self.xy = self.xy.index_copy(0, ids, r_xy)
             self.desc = self.desc.index_copy(0, ids, self._put(s.kf_desc[feat]))
@@ -350,7 +354,7 @@ class DeviceKFBank:
             self.mask = self.mask.index_copy(0, ids, self._put(s.kf_mask[feat]))
             self.xn = self.xn.index_copy(0, ids, self._xn(r_xy))
         if obs is not None:
-            ids = torch.from_numpy(obs.astype(np.int64)).to(self.device)
+            ids = upload(obs, torch.int64, self.device)
             self.obs = self.obs.index_copy(0, ids, self._put(s.kf_obs[obs]))
 
     def snapshot(self):

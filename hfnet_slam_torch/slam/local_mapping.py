@@ -40,6 +40,7 @@ import torch
 from .. import device as D
 from ..geometry import imu as IMU
 from ..optim import ba, factors, vi_ba
+from ..utils.timing import timings
 from . import fused
 from . import map as map_mod
 from .map import MapStore
@@ -102,8 +103,8 @@ class LocalMapper:
         self.dist_min_kfs = 48
 
     def _t(self, x, dtype=torch.float32):
-        """Host array -> a copy on the mapper's device (never a store view)."""
-        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
+        """Host array -> a copy on the mapper's device (device.upload)."""
+        return D.upload(x, dtype, self.device)
 
     # ------------------------------------------------------------------
     def initial_ba(self, kf0: int, kf1: int):
@@ -119,32 +120,39 @@ class LocalMapper:
     def process_keyframe(self, k: int, do_ba: bool = True):
         """The per-keyframe mapping pipeline (LocalMapping::Run body). do_ba
         False (keyframes are queued behind this one) runs the association
-        stages and leaves the local BA to the last queued keyframe."""
-        self.abort_ba = False
-        with self.lock:
-            self.kf_count += 1
-            self.kf_born[k] = self.kf_count
-            self.cull_map_points()
-        self.create_new_points(k)
-        self.fuse_neighbors(k)
-        with self.lock:
-            seen = self.store.kf_obs[k]
-            seen = np.unique(seen[seen >= 0])
-            g = self.store.gather_distinctive(seen)
-        best = None if g is None else map_mod.distinctive_kernel(g[1], g[2], self.device)
-        with self.lock:
-            if best is not None:
-                self.store.apply_distinctive(g[0], best)
-            self.store.update_point_stats(seen)
-        if do_ba:
-            # an IMU-initialized map gets the visual-inertial window BA
-            # (LocalMapping.cc:168)
-            if self.vim is not None and self.store.imu_initialized:
-                self.local_inertial_ba(k, self.vim)
-            else:
-                self.local_ba(k)
-        with self.lock:
-            self.cull_keyframes(k)
+        stages and leaves the local BA to the last queued keyframe. Spans:
+        `mapping`, with one child a stage."""
+        with timings.span("mapping"):
+            self.abort_ba = False
+            with timings.span("mapping.cull_points"), self.lock:
+                self.kf_count += 1
+                self.kf_born[k] = self.kf_count
+                self.cull_map_points()
+            with timings.span("mapping.triangulate"):
+                self.create_new_points(k)
+            with timings.span("mapping.fuse"):
+                self.fuse_neighbors(k)
+            with timings.span("mapping.distinctive"):
+                with self.lock:
+                    seen = self.store.kf_obs[k]
+                    seen = np.unique(seen[seen >= 0])
+                    g = self.store.gather_distinctive(seen)
+                best = None if g is None else map_mod.distinctive_kernel(g[1], g[2],
+                                                                         self.device)
+                with self.lock:
+                    if best is not None:
+                        self.store.apply_distinctive(g[0], best)
+                    self.store.update_point_stats(seen)
+            if do_ba:
+                with timings.span("mapping.local_ba"):
+                    # an IMU-initialized map gets the visual-inertial window
+                    # BA (LocalMapping.cc:168)
+                    if self.vim is not None and self.store.imu_initialized:
+                        self.local_inertial_ba(k, self.vim)
+                    else:
+                        self.local_ba(k)
+            with timings.span("mapping.cull_kfs"), self.lock:
+                self.cull_keyframes(k)
 
     # ------------------------------------------------------------------
     def cull_map_points(self):
@@ -648,7 +656,7 @@ class LocalMapper:
         M = mp_cap or cfg.ba_mp_cap
         E = edge_cap or cfg.ba_edge_cap
         store = self.store
-        with self.lock:
+        with timings.span("ba.build"), self.lock:
             big0 = store.big_change_idx
             kf_ids, mp_ids, kf_e, slot_e, mp_e = self._gather_edges(kf_ids, mp_ids, K, M, E)
             if len(kf_e) == 0:
@@ -678,14 +686,16 @@ class LocalMapper:
                 kf_idx=self._t(kf_idx, torch.int64), pt_idx=self._t(pt_idx, torch.int64),
                 uv=self._t(uv), inv_sigma2=self._t(inv_s2), valid=self._t(valid, torch.bool),
                 z_meas=self._t(z_meas), wz=self._t(wz), **rig)
-        out = ba.bundle_adjust(self.cam.kind, self.cam.params, prob, rounds=rounds,
-                               should_abort=should_abort)
-        R_new = out.poses_R.cpu().numpy()[: len(kf_ids)]
-        t_new = out.poses_t.cpu().numpy()[: len(kf_ids)]
-        pts = out.points.cpu().numpy()[: len(mp_ids)]
-        out_valid = out.valid.cpu().numpy()
+        with timings.span("ba.solve"):
+            out = ba.bundle_adjust(self.cam.kind, self.cam.params, prob, rounds=rounds,
+                                   should_abort=should_abort)
+        with timings.span("ba.readback"):
+            R_new = out.poses_R.cpu().numpy()[: len(kf_ids)]
+            t_new = out.poses_t.cpu().numpy()[: len(kf_ids)]
+            pts = out.points.cpu().numpy()[: len(mp_ids)]
+            out_valid = out.valid.cpu().numpy()
 
-        with self.lock:
+        with timings.span("ba.writeback"), self.lock:
             if abort_mode == "discard" and should_abort is not None and should_abort():
                 return None  # mbStopGBA: discard
             if store.big_change_idx != big0:

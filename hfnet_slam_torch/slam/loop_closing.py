@@ -45,6 +45,7 @@ from .. import lie
 from ..optim import pnp
 from ..optim import pose_graph as pg
 from ..optim import sim3 as sim3_mod
+from ..utils.timing import timings
 from . import fused, retrieval, search
 from .map import MapStore
 from .pipeline import NULL_LOCK
@@ -108,18 +109,19 @@ class LoopCloser:
         self.loop_refractory_kfs = 10
 
     def _t(self, x, dtype=torch.float32):
-        """Host array -> a copy on the loop closer's device (never a store
-        view: detection reads the store off the map lock)."""
-        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
+        """Host array -> a copy on the loop closer's device (device.upload)."""
+        return D.upload(x, dtype, self.device)
 
     # ------------------------------------------------------------------
     def process_keyframe(self, k: int) -> bool:
         """Detect and, when confirmed, correct a loop ending at keyframe k,
         or merge the active map into a matched stored map. True when a
-        correction or a merge ran."""
-        act = self._process_keyframe(k)
+        correction or a merge ran. Spans: `loop.detect`, `loop.correct`."""
+        with timings.span("loop.detect"):
+            act = self._process_keyframe(k)
         if isinstance(act, tuple):
-            self._correct_loop(k, *act)
+            with timings.span("loop.correct"):
+                self._correct_loop(k, *act)
             return True
         return bool(act)
 

@@ -13,9 +13,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 
-from ..device import resolve
+from ..device import resolve, upload
 
 
 @dataclasses.dataclass
@@ -601,8 +600,7 @@ def distinctive_kernel(descs, mask, device=None):
 
     device = resolve(device)
 
-    out = M.distinctive_descriptors(torch.from_numpy(descs).to(device),
-                                    torch.from_numpy(mask).to(device))
+    out = M.distinctive_descriptors(upload(descs, None, device), upload(mask, None, device))
     return out.cpu().numpy()
 
 

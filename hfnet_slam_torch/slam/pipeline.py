@@ -34,6 +34,8 @@ import queue
 import threading
 import time
 
+from ..utils.timing import timings
+
 
 class MappingWorker:
     """Consumes (store, kf) items: local mapping per keyframe, then the hand-
@@ -54,8 +56,9 @@ class MappingWorker:
 
     # -- tracking-thread API -------------------------------------------------
     def enqueue(self, store, k: int):
-        """LocalMapping::InsertKeyFrame."""
-        self.q.put((store, int(k)))
+        """LocalMapping::InsertKeyFrame; the keyframe's spans on this worker
+        carry the id of the frame that made it."""
+        self.q.put((store, int(k), timings.frame_id()))
 
     def queue_size(self) -> int:
         return self.q.qsize()
@@ -102,7 +105,7 @@ class MappingWorker:
             if item is None:
                 self.q.task_done()
                 return
-            store, k = item
+            store, k, fid = item
             # _busy is set BEFORE the pause check and set again after it: in
             # the other order request_pause() could see a stale False in the
             # gap and return while this worker starts a keyframe
@@ -116,29 +119,34 @@ class MappingWorker:
                 with self.map_lock:
                     stale = store is not sys_.store or not store.kf_valid[k]
                 if not stale:
-                    # the local BA waits while more keyframes are queued (the
-                    # reference's !CheckNewKeyFrames() gate)
-                    sys_.mapper.process_keyframe(k, do_ba=self.q.qsize() == 0)
-                    lw = getattr(sys_, "loop_worker", None)
-                    if lw is not None:
-                        lw.enqueue(store, k)
-                    elif sys_.loop_closer is not None:
-                        if sys_.loop_closer.process_keyframe(k):
-                            with self.map_lock:
-                                sys_.tracker.velocity = None
-                    vi = getattr(sys_, "vi", None)
-                    if vi is not None:
-                        # the staged IMU initialization runs on this worker
-                        # under the map lock: its rescale is a whole-map move
-                        # the tracker must not interleave with
-                        with self.map_lock:
-                            vi.maybe_initialize(float(store.kf_timestamp[k]))
+                    self._process(sys_, store, k, fid)
                 self.processed += 1
             except Exception as e:  # raised again by drain()
                 self.exc = e
             finally:
                 self._busy = False
                 self.q.task_done()
+
+    def _process(self, sys_, store, k, fid):
+        """One keyframe, its spans under the id of the frame that made it."""
+        with timings.frame_scope(fid):
+            # the local BA waits while more keyframes are queued (the
+            # reference's !CheckNewKeyFrames() gate)
+            sys_.mapper.process_keyframe(k, do_ba=self.q.qsize() == 0)
+            lw = getattr(sys_, "loop_worker", None)
+            if lw is not None:
+                lw.enqueue(store, k, fid)
+            elif sys_.loop_closer is not None:
+                if sys_.loop_closer.process_keyframe(k):
+                    with self.map_lock:
+                        sys_.tracker.velocity = None
+            vi = getattr(sys_, "vi", None)
+            if vi is not None:
+                # the staged IMU initialization runs on this worker under the
+                # map lock: its rescale is a whole-map move the tracker must
+                # not interleave with
+                with self.map_lock:
+                    vi.maybe_initialize(float(store.kf_timestamp[k]))
 
 
 class LoopWorker:
@@ -155,9 +163,10 @@ class LoopWorker:
         self._thread = threading.Thread(target=self._run, name="hfnet-loop", daemon=True)
         self._thread.start()
 
-    def enqueue(self, store, k: int):
-        """LoopClosing::InsertKeyFrame."""
-        self.q.put((store, int(k)))
+    def enqueue(self, store, k: int, fid: int = -1):
+        """LoopClosing::InsertKeyFrame, with the id of the frame that made
+        the keyframe."""
+        self.q.put((store, int(k), fid))
 
     def queue_size(self) -> int:
         return self.q.qsize()
@@ -193,7 +202,7 @@ class LoopWorker:
                     stop = True
                     break
                 items.append(nxt)
-            store, k = items[-1]
+            store, k, fid = items[-1]
             self.skipped += len(items) - 1
             try:
                 sys_ = self.system
@@ -201,7 +210,9 @@ class LoopWorker:
                 with lock:
                     stale = store is not sys_.store or not store.kf_valid[k]
                 if not stale and sys_.loop_closer is not None:
-                    if sys_.loop_closer.process_keyframe(k):
+                    with timings.frame_scope(fid):
+                        corrected = sys_.loop_closer.process_keyframe(k)
+                    if corrected:
                         with lock:  # the map moved under the tracker
                             sys_.tracker.velocity = None
                 self.processed += 1

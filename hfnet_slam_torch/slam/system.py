@@ -51,6 +51,7 @@ from .. import device as D
 from ..geometry import cameras
 from ..models.extractor import Features
 from ..ops import stereo as S
+from ..utils.timing import timings
 from . import merging
 from .atlas import Atlas
 from .local_mapping import LocalMapper, MapperConfig
@@ -154,7 +155,8 @@ class SLAMSystem:
 
     def track_monocular(self, image, timestamp: float):
         """Feed one frame. Returns (state, R_cw, t_cw); the pose may be None."""
-        return self.track_features(self.extractor(image), timestamp)
+        with timings.frame():
+            return self.track_features(self.extractor(image), timestamp)
 
     def _stereo_depth(self, image_left, image_right):
         """Extract both images and associate them: (left Features, per-slot
@@ -162,43 +164,55 @@ class SLAMSystem:
         fl = self.extractor(image_left).to(self.device)
         fr = self.extractor(image_right).to(self.device)
         if self.cam_right is not None:
-            R_lr, t_lr = (torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-                          for x in self.cfg.T_lr)
-            depth, idx, _ = S.match_stereo_fisheye(
-                self.cam.kind, self.cam.params, self.cam_right.kind, self.cam_right.params,
-                fl.xy, fl.desc, fl.octave, fl.mask, fr.xy, fr.desc, fr.octave, fr.mask,
-                R_lr, t_lr)
-            fr_host = Features(*(x.cpu().numpy() for x in fr))
-            return fl, depth.cpu().numpy(), (fr_host, idx.cpu().numpy())
-        depth, _ = S.match_stereo(fl.xy, fl.desc, fl.octave, fl.mask, fr.xy, fr.desc,
-                                  fr.octave, fr.mask, fx=self.cam.fx, baseline=self.cfg.baseline)
-        return fl, depth.cpu().numpy(), None
+            with timings.span("frame.stereo"):
+                R_lr, t_lr = (D.upload(x, torch.float32, self.device) for x in self.cfg.T_lr)
+                depth, idx, _ = S.match_stereo_fisheye(
+                    self.cam.kind, self.cam.params, self.cam_right.kind, self.cam_right.params,
+                    fl.xy, fl.desc, fl.octave, fl.mask, fr.xy, fr.desc, fr.octave, fr.mask,
+                    R_lr, t_lr)
+            with timings.span("frame.readback"):
+                fr_host = Features(*(x.cpu().numpy() for x in fr))
+                return fl, depth.cpu().numpy(), (fr_host, idx.cpu().numpy())
+        with timings.span("frame.stereo"):
+            depth, _ = S.match_stereo(fl.xy, fl.desc, fl.octave, fl.mask, fr.xy, fr.desc,
+                                      fr.octave, fr.mask, fx=self.cam.fx,
+                                      baseline=self.cfg.baseline)
+        with timings.span("frame.readback"):
+            return fl, depth.cpu().numpy(), None
 
     def track_stereo(self, image_left, image_right, timestamp: float):
         """Stereo frame: extract both images, associate them for depth (rows of
         a rectified rig, or the fisheye rig's triangulation), then track."""
-        fl, depth, right = self._stereo_depth(image_left, image_right)
-        return self.track_features(fl, timestamp, depth=depth, right=right)
+        with timings.frame():
+            fl, depth, right = self._stereo_depth(image_left, image_right)
+            return self.track_features(fl, timestamp, depth=depth, right=right)
 
     def track_rgbd(self, image, depth_image, timestamp: float):
         """RGB-D frame: the registered depth map (raw units, times
         cfg.depth_factor) sampled at the keypoints."""
-        feats = self.extractor(image).to(self.device)
-        dimg = torch.as_tensor(np.asarray(depth_image, np.float32), device=self.device) \
-            if not torch.is_tensor(depth_image) else depth_image.to(self.device, torch.float32)
-        depth = S.depth_at_keypoints(dimg, feats.xy, self.cfg.depth_factor)
-        return self.track_features(feats, timestamp, depth=depth.cpu().numpy())
+        with timings.frame():
+            feats = self.extractor(image).to(self.device)
+            with timings.span("frame.upload"):
+                dimg = D.upload(depth_image, torch.float32, self.device) \
+                    if not torch.is_tensor(depth_image) \
+                    else depth_image.to(self.device, torch.float32)
+            with timings.span("frame.readback"):
+                depth = S.depth_at_keypoints(dimg, feats.xy, self.cfg.depth_factor)
+                depth = depth.cpu().numpy()
+            return self.track_features(feats, timestamp, depth=depth)
 
     def track_monocular_inertial(self, image, timestamp: float, imu):
         """Mono-inertial frame: imu = (N,7) [ax ay az wx wy wz dt] rows
         covering (t_prev, t]."""
-        return self.track_features(self.extractor(image), timestamp, imu=imu)
+        with timings.frame():
+            return self.track_features(self.extractor(image), timestamp, imu=imu)
 
     def track_stereo_inertial(self, image_left, image_right, timestamp: float, imu):
         """Stereo-inertial frame: track_stereo's depth plus the (N,7) IMU rows.
         As the reference's, it hands no right observations to the tracker."""
-        fl, depth, _ = self._stereo_depth(image_left, image_right)
-        return self.track_features(fl, timestamp, depth=depth, imu=imu)
+        with timings.frame():
+            fl, depth, _ = self._stereo_depth(image_left, image_right)
+            return self.track_features(fl, timestamp, depth=depth, imu=imu)
 
     def install_mesh(self, mesh, dist_min_kfs: int = 48, retrieval_min_kfs: int = 64):
         """Route big compute over `mesh` (parallel/multihost.Mesh): global BA
@@ -221,16 +235,17 @@ class SLAMSystem:
         (Features as numpy, left->right match) for the right bank. An
         attached viewer sees every frame first; its step gate may block
         here."""
-        if self.viewer is not None:
-            self.viewer.on_frame(self.store, self.tracker)
-        feats = feats.to(self.device)
-        if self.cam.dist is not None:
-            # depth was sampled at the raw pixel, where the sensor measured it
-            feats = feats._replace(xy=self.cam.undistort(feats.xy))
-        out = self.tracker.track(feats, timestamp, depth=depth, imu=imu, right=right)
-        if out[0] == LOST:
-            self._handle_lost()
-        return out
+        with timings.frame():
+            if self.viewer is not None:
+                self.viewer.on_frame(self.store, self.tracker)
+            feats = feats.to(self.device)
+            if self.cam.dist is not None:
+                # depth was sampled at the raw pixel, where the sensor measured it
+                feats = feats._replace(xy=self.cam.undistort(feats.xy))
+            out = self.tracker.track(feats, timestamp, depth=depth, imu=imu, right=right)
+            if out[0] == LOST:
+                self._handle_lost()
+            return out
 
     def finish(self):
         """Drain the mapping, loop and GBA queues in topological order

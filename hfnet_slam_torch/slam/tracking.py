@@ -47,6 +47,7 @@ from ..models.extractor import Features
 from ..ops import matching as M
 from ..optim import inertial as VIOPT
 from ..optim import pnp, pose_opt
+from ..utils.timing import timings
 from . import fused, retrieval, search
 from .map import MapStore
 from .pipeline import NULL_LOCK
@@ -210,10 +211,8 @@ class Tracker:
         self.localization_only = False
 
     def _t(self, x, dtype=torch.float32):
-        """Host array -> a COPY on the tracker's device (float32 boundary).
-        Never a view of a store array: work that runs off the map lock
-        would otherwise read what the mapping worker writes."""
-        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
+        """Host array -> a copy on the tracker's device (device.upload)."""
+        return D.upload(x, dtype, self.device)
 
     # ------------------------------------------------------------------
     def reset_for_new_map(self, store: MapStore):
@@ -243,8 +242,13 @@ class Tracker:
         RGB-D); imu: optional (N,7) [ax ay az wx wy wz dt] rows covering
         (t_prev, t]; right: optional (right Features, left->right match idx)
         of a fisheye rig. Returns (state, R, t); the pose may be None."""
-        with self.lock:
-            return self._track(feats, timestamp, depth, imu, right)
+        with timings.span("track"):
+            with timings.span("track.lock"):
+                self.lock.acquire()
+            try:
+                return self._track(feats, timestamp, depth, imu, right)
+            finally:
+                self.lock.release()
 
     def _track(self, feats, timestamp, depth=None, imu=None, right=None):
         big = self.store.big_change_idx
@@ -278,32 +282,44 @@ class Tracker:
         else:
             self._cur_imu_block = None
         if self.state == NOT_INITIALIZED:
-            if frame.depth is not None:
-                self._stereo_initialization(frame)
-            else:
-                self._monocular_initialization(frame)
+            with timings.span("track.init"):
+                if frame.depth is not None:
+                    self._stereo_initialization(frame)
+                else:
+                    self._monocular_initialization(frame)
         elif self.state == OK:
             # the fused program is visual-only: an initialized IMU takes the
             # staged path
-            handled = False if self._vi_active() else self._track_fused(frame)
+            vi_active = self._vi_active()
+            handled = False if vi_active else self._track_fused(frame)
             if not handled:
-                if self._track_frame(frame):
-                    self._track_local_map(frame)
-                else:
-                    frame.R = None
-                    frame.t = None
+                if not vi_active:
+                    timings.count("fallbacks")
+                with timings.span("track.fallback"):
+                    if self._track_frame(frame):
+                        self._track_local_map(frame)
+                    else:
+                        frame.R = None
+                        frame.t = None
             if frame.R is None:
                 self._on_tracking_failure()
             else:
-                if not self.localization_only and self._need_new_keyframe(frame):
-                    self._create_keyframe(frame)
+                with timings.span("track.kf_decision"):
+                    need = not self.localization_only and self._need_new_keyframe(frame)
+                if need:
+                    with timings.span("track.keyframe"):
+                        self._create_keyframe(frame)
                 self.last_frame = frame
         elif self.state == RECENTLY_LOST and self._vi_active():
-            self._track_recently_lost_vi(frame)
+            with timings.span("track.fallback"):
+                self._track_recently_lost_vi(frame)
         elif self.state == RECENTLY_LOST:
-            if self._relocalize(frame):
-                self.state = OK
-                self._track_local_map(frame)
+            with timings.span("track.fallback"):
+                relocalized = self._relocalize(frame)
+                if relocalized:
+                    self.state = OK
+                    self._track_local_map(frame)
+            if relocalized:
                 if frame.R is not None:
                     self.last_frame = frame
                     self.frames_since_kf = self.cfg.max_frames_between_kf  # re-anchor soon
@@ -771,31 +787,38 @@ class Tracker:
         if len(mp_ids) < 3:
             return False
         if self._local_ids is None:
-            self._update_local_set(last_obs)
+            with timings.span("track.local_set"):
+                self._update_local_set(last_obs)
             if self._local_ids is None:
                 return False
-        R0, t0 = self._predicted_pose()
-        dm = fused.get_device_map(store, self.device)
-        dm.sync()
-        motion_ids = np.full(store.n_slots, -1, np.int64)
-        n_m = min(len(mp_ids), store.n_slots)
-        motion_ids[:n_m] = mp_ids[:n_m]
-        rows = self._depth_rows(frame)
-        if rows is None:
-            z = wz = torch.zeros(store.n_slots, dtype=torch.float32, device=self.device)
-        else:
-            z, wz = self._t(rows[0]), self._t(rows[1])
-        f = frame.feats
-        # the mirror's tables are replaced, never written, by later syncs, and
-        # the id vectors and poses are copies: the step may run off the lock
-        args = (self._t(R0), self._t(t0)) + dm.snapshot() + (
-            self._t(motion_ids, torch.int64), self._t(self._local_ids, torch.int64))
+        with timings.span("track.map_sync"):
+            dm = fused.get_device_map(store, self.device)
+            dm.sync()
+        with timings.span("track.prepare"):
+            R0, t0 = self._predicted_pose()
+            motion_ids = np.full(store.n_slots, -1, np.int64)
+            n_m = min(len(mp_ids), store.n_slots)
+            motion_ids[:n_m] = mp_ids[:n_m]
+            rows = self._depth_rows(frame)
+            if rows is None:
+                z = wz = torch.zeros(store.n_slots, dtype=torch.float32, device=self.device)
+            else:
+                z, wz = self._t(rows[0]), self._t(rows[1])
+            f = frame.feats
+            # the mirror's tables are replaced, never written, by later syncs,
+            # and the id vectors and poses are copies: the step may run off
+            # the lock
+            args = (self._t(R0), self._t(t0)) + dm.snapshot() + (
+                self._t(motion_ids, torch.int64), self._t(self._local_ids, torch.int64))
 
         def run():
-            out = fused.track_step(
-                self.cam.kind, self.cam.params, float(self.cam.width), float(self.cam.height),
-                *args, f.xy, f.desc, f.octave, f.mask, z, wz, self._fused_cfg)
-            return {k: v.cpu().numpy() for k, v in out.items()}  # one host copy per frame
+            with timings.span("track.step"):
+                out = fused.track_step(
+                    self.cam.kind, self.cam.params, float(self.cam.width),
+                    float(self.cam.height), *args, f.xy, f.desc, f.octave, f.mask, z, wz,
+                    self._fused_cfg)
+            with timings.span("track.readback"):  # one host copy per frame
+                return {k: v.cpu().numpy() for k, v in out.items()}
 
         out = self._unlocked(run)
         # a whole-map move (loop correction, GBA propagation) may have landed
@@ -811,25 +834,26 @@ class Tracker:
         if n1 < cfg.min_motion_matches or n_in1 < cfg.min_pose_inliers:
             return False  # staged fallbacks (ref-KF brute force) take over
 
-        frame.R = out["R"]
-        frame.t = out["t"]
-        frame.obs = self._revalidate_obs(out["obs"])
-        self.n_inliers = n_in2
-        vis = out["vis_local"]
-        lids = self._local_ids
-        store.mp_visible[lids[(lids >= 0) & vis]] += 1
-        obs1 = out["obs1"]
-        store.mp_visible[np.unique(obs1[obs1 >= 0])] += 1
-        store.mp_found[frame.obs[frame.obs >= 0]] += 1
-
-        if n_in2 < cfg.min_local_inliers and n_in2 < cfg.min_pose_inliers:
-            frame.R = None
-            frame.t = None
-            return True
-        R_l, t_l = self.last_frame.R, self.last_frame.t
-        R_v = _orthonormalize_np(frame.R @ R_l.T)
-        self.velocity = (R_v, frame.t - R_v @ t_l)
-        self._update_local_set(frame.obs)
+        with timings.span("track.update"):
+            frame.R = out["R"]
+            frame.t = out["t"]
+            frame.obs = self._revalidate_obs(out["obs"])
+            self.n_inliers = n_in2
+            vis = out["vis_local"]
+            lids = self._local_ids
+            store.mp_visible[lids[(lids >= 0) & vis]] += 1
+            obs1 = out["obs1"]
+            store.mp_visible[np.unique(obs1[obs1 >= 0])] += 1
+            store.mp_found[frame.obs[frame.obs >= 0]] += 1
+            if n_in2 < cfg.min_local_inliers and n_in2 < cfg.min_pose_inliers:
+                frame.R = None
+                frame.t = None
+                return True
+            R_l, t_l = self.last_frame.R, self.last_frame.t
+            R_v = _orthonormalize_np(frame.R @ R_l.T)
+            self.velocity = (R_v, frame.t - R_v @ t_l)
+        with timings.span("track.local_set"):
+            self._update_local_set(frame.obs)
         return True
 
     def _update_local_set(self, obs):

@@ -89,7 +89,7 @@ class VIManager:
         self._last_refine_ts = None
 
     def _t(self, x):
-        return torch.tensor(np.asarray(x, np.float32), device=self.device)
+        return D.upload(x, torch.float32, self.device)
 
     # ------------------------------------------------------------------
     def integrate(self, meas: np.ndarray, bg=None, ba=None) -> IMU.Preintegrated:

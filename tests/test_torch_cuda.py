@@ -680,3 +680,64 @@ def test_dist_lm_step_on_the_card_matches_the_cpu(cuda):
     _close(g[1], c[1], 1e-4, "poses_t")
     _close(g[2], c[2], 1e-3, "points")
     assert abs(float(g[4]) - float(c[4])) <= 1e-4 * abs(float(c[4]))
+
+
+# ---------------------------------------------------------------------------
+# the port's recorder (utils/timing.py) on the profiler's clock
+# ---------------------------------------------------------------------------
+
+def _sync_probe(path):
+    """A function whose .item() is issued from a line of file `path`."""
+    ns = {}
+    exec(compile("def probe(x):\n    return x.item()\n", path, "exec"), ns)
+    return ns["probe"]
+
+
+def test_recorder_spans_share_the_profilers_clock_and_count_port_syncs(cuda):
+    """A span around a ~2 ms spin kernel and its .cpu() readback, profiled
+    with CUDA activity only: mapped through the recorder's anchor, the
+    kernel's start and end lie inside the span within 50 us. One .item()
+    from a line in the port counts 1 sync; an .item() and a
+    torch.cuda.synchronize() from elsewhere count 0; disable() restores the
+    sync debug mode."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hfnet_slam_torch.utils import timing as T
+
+    reg = T.TimingRegistry()
+    x = torch.ones(1, device=cuda)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    reg.enable()
+    try:
+        assert torch.cuda.get_sync_debug_mode() == 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            with reg.span("spin") as spin:
+                torch.cuda._sleep(4_000_000)
+                x.cpu()
+            torch.cuda.synchronize()
+        port = _sync_probe(os.path.join(os.path.dirname(T.__file__), "_probe.py"))
+        other = _sync_probe(__file__)
+        with reg.span("port") as in_port:
+            port(x)
+        with reg.span("other") as elsewhere:
+            other(x)
+            torch.cuda.synchronize()
+    finally:
+        reg.disable()
+    assert torch.cuda.get_sync_debug_mode() == mode
+    cuda_t = torch.autograd.DeviceType.CUDA
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == cuda_t and "spin" in e.name()]
+    assert len(ev) == 1
+    k0, k1 = ev[0].start_ns(), ev[0].start_ns() + ev[0].duration_ns()
+    s0, s1 = reg.to_unix_ns(spin.t0), reg.to_unix_ns(spin.t1)
+    print(f"spin kernel {k0 - s0} ns after the span's start, ends {s1 - k1} ns before its "
+          f"end; kernel {ev[0].duration_ns()} ns, span {s1 - s0} ns")
+    assert s0 - 50_000 <= k0 < k1 <= s1 + 50_000
+    assert k1 - k0 > 500_000
+    assert in_port.counts == {"syncs": 1}
+    assert not elsewhere.counts
