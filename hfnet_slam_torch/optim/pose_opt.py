@@ -7,7 +7,12 @@ the Huber kernel dropped from round 3 on (Optimizer::PoseOptimization).
 
 The reference's lax.scan is a fixed-count Python loop here. The accept test
 (summed per-edge cost differences) stays on the device as torch.where:
-nothing in the loop reads a value back to the host.
+nothing in the loop reads a value back to the host, so the loop can be
+captured in a CUDA graph (slam/fused.track_step replays it). The damping is
+made on the device, and the 6x6 solve is `solve_ex` without its error check
+(the same LU as `solve`): a singular system gives a non-finite step, which
+the accept test rejects, as with the reference's jnp.linalg.solve, which
+never raises.
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ def pose_optimize_core(cam_kind, cam_params, R0, t0, points_w, uv, inv_sigma2,
     inlier = valid.to(dt)
     for rnd in range(N_ROUNDS):
         robust = rnd < 2  # rounds 1-2 Huber, 3-4 plain least squares
-        lam = torch.tensor(1e-4, dtype=dt, device=dev)
+        lam = torch.full((), 1e-4, dtype=dt, device=dev)
         for _ in range(N_ITERS):
             r, J, depth = residuals(R, t)
             chi2 = chi2_of(r)
@@ -67,7 +72,7 @@ def pose_optimize_core(cam_kind, cam_params, R0, t0, points_w, uv, inv_sigma2,
             H = torch.einsum("nri,nrj->ij", JW, J)
             b = torch.einsum("nri,nr->i", JW, r)
             H = H + lam * torch.diag(torch.diagonal(H))
-            dx = -torch.linalg.solve(H + 1e-9 * eye6, b)
+            dx = -torch.linalg.solve_ex(H + 1e-9 * eye6, b, check_errors=False)[0]
             R_new, t_new = lie.se3_retract(R, t, dx)
             # accept on the SUM OF PER-EDGE cost differences: the difference
             # of two large f32 sums loses a small step's signal

@@ -25,9 +25,19 @@ staging buffer is filled from the store's arrays (it would be rewritten
 while a copy from it is in flight). The
 out-of-range pad rows the reference scatters with mode="drop" do not exist
 here: eager scatters take exactly the dirty ids.
+
+On a CUDA device `track_step` replays its body from a CUDA graph captured
+once per input signature (camera kind, image size, config, each tensor's
+shape, dtype and device). The graph copies each call's snapshot into its
+own static buffers before the replay and hands back copies of its outputs,
+so the guarantee above still holds: a handle tuple is read once, when the
+step is enqueued, and a later sync or a later step never writes what an
+earlier call was given or returned.
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
@@ -174,7 +184,89 @@ def track_step(cam_kind, cam_params, W, H, R0, t0, m_pos, m_desc, m_normal,
       4. final pose-only LM over the merged observations.
     Returns dict(R, t, obs, obs1, vis_local, stats=[n_motion_matches,
     n_inliers_stage2, n_inliers_final]); nothing is read back to the host.
+
+    On a CUDA device the step is replayed from a cached CUDA graph (counters
+    `step_graph_captures` on a miss, which returns an eager run's result, and
+    `step_graph_replays`); on the CPU the eager body runs as it is.
     """
+    tensors = (cam_params, R0, t0, m_pos, m_desc, m_normal, m_dmin, m_dmax, m_valid,
+               motion_ids, local_ids, xy, desc, octave, mask, z_meas, wz)
+    dev = m_pos.device
+    if dev.type != "cuda":
+        return _track_step_eager(cam_kind, cam_params, W, H, *tensors[1:], cfg)
+    key = (cam_kind, float(W), float(H), cfg,
+           tuple(None if x is None else (x.shape, x.dtype) for x in tensors), dev)
+    with _GRAPHS_LOCK:
+        graph = _GRAPHS.get(key)
+        if graph is None:
+            timings.count("step_graph_captures")
+            graph, out = _StepGraph.capture(cam_kind, W, H, cfg, tensors)
+            _GRAPHS[key] = graph
+            if len(_GRAPHS) > _GRAPHS_MAX:
+                _GRAPHS.popitem(last=False)
+            return out
+        _GRAPHS.move_to_end(key)
+    timings.count("step_graph_replays")
+    return graph.replay(tensors)
+
+
+# Captured steps, least recently used first. Module-wide, not per tracker:
+# every new SLAMSystem on the same shapes (an atlas' next map, a runner's next
+# sequence) replays the graph the first one captured.
+_GRAPHS: OrderedDict = OrderedDict()
+_GRAPHS_MAX = 4
+_GRAPHS_LOCK = threading.Lock()
+
+
+class _StepGraph:
+    """_track_step_eager captured at one input signature: static input
+    buffers, the graph that reads them and the static outputs it writes."""
+
+    def __init__(self, inputs, outputs, graph):
+        self.inputs, self.outputs, self.graph = inputs, outputs, graph
+        self.lock = threading.Lock()
+        self.done = torch.cuda.Event()   # the last replay's outputs copied out
+
+    @classmethod
+    def capture(cls, cam_kind, W, H, cfg, tensors):
+        """Warm up on a side stream (cuBLAS / cuSOLVER handles and
+        workspaces), then capture into static buffers. Returns the graph and
+        the warm-up's outputs. Thread-local capture: CUDA work that another
+        thread (the mapping or loop worker) issues meanwhile stays legal."""
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = _track_step_eager(cam_kind, tensors[0], W, H, *tensors[1:], cfg)
+        cur.wait_stream(side)
+        for v in out.values():
+            v.record_stream(cur)
+        inputs = tuple(None if x is None else x.clone() for x in tensors)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            outputs = _track_step_eager(cam_kind, inputs[0], W, H, *inputs[1:], cfg)
+        return cls(inputs, outputs, graph), out
+
+    def replay(self, tensors):
+        """Copy the arguments in, replay, and return copies of the outputs
+        (a caller may keep them past the next replay), all on the caller's
+        stream, after any earlier replay's outputs were copied out."""
+        with self.lock:
+            stream = torch.cuda.current_stream()
+            stream.wait_event(self.done)
+            for buf, x in zip(self.inputs, tensors):
+                if buf is not None:
+                    buf.copy_(x)
+            self.graph.replay()
+            out = {k: v.clone() for k, v in self.outputs.items()}
+            self.done.record(stream)
+        return out
+
+
+def _track_step_eager(cam_kind, cam_params, W, H, R0, t0, m_pos, m_desc, m_normal,
+                      m_dmin, m_dmax, m_valid, motion_ids, local_ids, xy, desc, octave,
+                      mask, z_meas, wz, cfg: FusedConfig):
+    """The body of track_step, op by op; makes no host sync."""
     dev = m_pos.device
     octave_f = octave.to(torch.float32)
     radii_base = 1.2 ** octave_f

@@ -63,6 +63,12 @@ class MappingWorker:
     def queue_size(self) -> int:
         return self.q.qsize()
 
+    def wait_queue_below(self, n: int):
+        """Block until fewer than n keyframes wait in the queue (the one in
+        flight not counted); returns at once once the worker thread ended."""
+        while self.q.qsize() >= n and self._thread.is_alive():
+            time.sleep(0.002)
+
     # -- loop-closer API -----------------------------------------------------
     def request_pause(self, timeout: float = 30.0):
         """Pause between queue items and wait until the in-flight item ends

@@ -244,6 +244,13 @@ class Tracker:
         of a fisheye rig. Returns (state, R, t); the pose may be None."""
         with timings.span("track"):
             with timings.span("track.lock"):
+                if (self.worker is not None and self.vi is not None
+                        and not self.store.imu_initialized):
+                    # until the IMU is initialized a frame starts only once
+                    # the mapping worker took the last keyframe: the staged
+                    # init runs when its keyframe is due, on locally mapped
+                    # keyframes (a queued keyframe skips its local BA)
+                    self.worker.wait_queue_below(1)
                 self.lock.acquire()
             try:
                 return self._track(feats, timestamp, depth, imu, right)
@@ -1141,10 +1148,13 @@ class Tracker:
         pre = meas = None
         if self.vi is not None and self._last_kf >= 0:
             # the chain link from the previous keyframe, integrated at its
-            # bias before the switch (off the lock, on copies)
+            # bias before the switch, under the lock as in the reference: the
+            # frame's pose is final, and a whole-map move landing before the
+            # insertion (the IMU init's rescale on the mapping worker) would
+            # leave the keyframe in the old gauge
             meas = self._meas_since_kf()
             bg, ba = store.kf_bg[self._last_kf].copy(), store.kf_ba[self._last_kf].copy()
-            pre = self._unlocked(lambda: self.vi.integrate(meas, bg, ba))
+            pre = self.vi.integrate(meas, bg, ba)
         k = store.add_keyframe(frame.R, frame.t, frame.host, frame.timestamp, obs=frame.obs,
                                depth=frame.depth)
         self.ref_kf = k

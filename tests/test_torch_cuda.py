@@ -741,3 +741,171 @@ def test_recorder_spans_share_the_profilers_clock_and_count_port_syncs(cuda):
     assert k1 - k0 > 500_000
     assert in_port.counts == {"syncs": 1}
     assert not elsewhere.counts
+
+
+# ---------------------------------------------------------------------------
+# the fused tracking step replayed from a CUDA graph (slam/fused.track_step)
+# ---------------------------------------------------------------------------
+
+def _browse_steps(device, size, frames):
+    """The arguments of every fused.track_step call of a browse run."""
+    from hfnet_slam_torch.scenes import browse_pose, browse_system
+    from hfnet_slam_torch.slam import fused as F
+
+    steps, real = [], F.track_step
+
+    def record(*args):
+        steps.append(args)
+        return real(*args)
+
+    F.track_step = record
+    try:
+        sys_, ext = browse_system(size, device=device)
+        for i in range(frames):
+            sys_.track_features(ext(*browse_pose(i)), 0.05 * i)
+    finally:
+        F.track_step = real
+    return steps
+
+
+@pytest.fixture(scope="module")
+def browse_steps():
+    """A SMALL browse run's fused steps on the card (18 from 30 frames)."""
+    from hfnet_slam_torch.scenes import SMALL
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: python -m pytest --noconftest -m cuda "
+                    "tests/test_torch_cuda.py on the GPU")
+    steps = _browse_steps(torch.device("cuda"), SMALL, 30)
+    assert len(steps) >= 12
+    return steps
+
+
+def _fresh(args):
+    """The same call with every tensor argument in new storage."""
+    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+
+def test_track_step_graph_matches_its_eager_body(cuda, browse_steps, monkeypatch):
+    """A browse run's consecutive steps through an empty graph cache, each on
+    new tensors: one capture, then replays, every output equal to the eager
+    body's bit for bit, and no call's outputs changed by the calls after."""
+    from collections import OrderedDict
+
+    from hfnet_slam_torch.slam import fused as F
+
+    monkeypatch.setattr(F, "_GRAPHS", OrderedDict())
+    kept = []
+    for args in browse_steps:
+        args = _fresh(args)
+        out = F.track_step(*args)
+        ref = F._track_step_eager(*args)
+        assert out.keys() == ref.keys()
+        for k in ref:
+            assert torch.equal(out[k], ref[k]), k
+        for prev, copy in kept:
+            for k in copy:
+                assert torch.equal(prev[k], copy[k]), k
+        kept.append((out, {k: v.clone() for k, v in out.items()}))
+    assert len(F._GRAPHS) == 1
+    assert max(int(o["stats"][2]) for o, _ in kept) >= 50  # the steps track
+
+
+def test_track_step_makes_no_host_sync(cuda, browse_steps):
+    """The eager body, and a replay (copies in, replay, copies out), under
+    torch's sync debug mode "error"."""
+    from hfnet_slam_torch.slam import fused as F
+
+    args = browse_steps[-1]
+    F.track_step(*args)  # the graph at this signature exists from here on
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ref = F._track_step_eager(*args)
+        out = F.track_step(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+
+
+def test_track_step_graph_cache_is_shared_and_keyed_on_shapes(cuda, monkeypatch):
+    """A second tracker at the same shapes replays the first one's graph
+    (`step_graph_captures` stays 1); a tracker with another local_mp_cap
+    captures its own. The counters reach the recorder's report."""
+    from collections import OrderedDict
+
+    from hfnet_slam_torch.scenes import SMALL
+    from hfnet_slam_torch.slam import fused as F
+    from hfnet_slam_torch.utils.timing import timings
+
+    def counts():
+        tot = {}
+        for r in timings.records():
+            for k, v in (r.counts or {}).items():
+                tot[k] = tot.get(k, 0) + v
+        return tot.get("step_graph_captures", 0), tot.get("step_graph_replays", 0)
+
+    monkeypatch.setattr(F, "_GRAPHS", OrderedDict())
+    timings.reset()
+    timings.enable()
+    try:
+        read = []
+        for size in (SMALL, SMALL, dict(SMALL, local_mp_cap=512)):
+            n = len(_browse_steps(cuda, size, 18))
+            read.append(counts() + (n,))
+        report = timings.report()
+    finally:
+        timings.disable()
+        timings.reset()
+    (c1, r1, n1), (c2, r2, n2), (c3, r3, n3) = read
+    assert (c1, r1) == (1, n1 - 1) and n1 >= 4
+    assert (c2, r2) == (1, r1 + n2)
+    assert (c3, r3) == (2, r2 + n3 - 1)
+    assert len(F._GRAPHS) == 2
+    assert "step_graph_captures" in report and "step_graph_replays" in report
+
+
+def test_track_step_graph_from_eight_threads(cuda, browse_steps):
+    """Eight threads, each on its own stream, replay the browse steps in
+    their own orders through one cached graph: every output equals the
+    eager body's (the replay lock and the copy-out event keep one thread's
+    inputs from overwriting another's before its replay ran)."""
+    import random
+    import sys
+    import threading
+
+    from hfnet_slam_torch.slam import fused as F
+
+    refs = [F._track_step_eager(*a) for a in browse_steps]
+    F.track_step(*browse_steps[0])
+    torch.cuda.synchronize()
+    errs, bad = [], []
+
+    def run(seed):
+        try:
+            order = list(range(len(browse_steps))) * 3
+            random.Random(seed).shuffle(order)
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                outs = [(i, F.track_step(*browse_steps[i])) for i in order]
+            stream.synchronize()
+            bad.extend(i for i, o in outs
+                       if not all(torch.equal(o[k], refs[i][k]) for k in o))
+        except Exception as e:  # pragma: no cover - failure path
+            errs.append(e)
+
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        ths = [threading.Thread(target=run, args=(s,)) for s in range(8)]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(saved)
+    assert not any(th.is_alive() for th in ths)
+    assert not errs, errs
+    assert not bad, f"{len(bad)} replays differ from the eager body"

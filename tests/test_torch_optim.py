@@ -71,6 +71,33 @@ def test_pose_optimize_core(case):
     assert int(rt["n_inliers"]) == int(rj["n_inliers"])
 
 
+@pytest.mark.parametrize("case", ["perturbed", "noise_free", "outliers", "masked"])
+def test_pose_optimize_core_solve_ex_gives_solves_bits(case, monkeypatch):
+    """The LM's solve_ex without its error check gives bit for bit what the
+    checking torch.linalg.solve gave on the same problems."""
+    args = [T(a) for a in _pose_problem(case)]
+    run = lambda: Tpo.pose_optimize_core(CAM_T.kind, CAM_T.params, *args)  # noqa: E731
+    new = run()
+    solve = torch.linalg.solve
+    monkeypatch.setattr(torch.linalg, "solve_ex", lambda A, B, check_errors=False: (
+        solve(A, B), torch.zeros((), dtype=torch.int32)))
+    old = run()
+    for k in ("R", "t", "inlier", "n_inliers"):
+        assert torch.equal(new[k], old[k]), k
+
+
+def test_pose_optimize_core_with_no_valid_observation_keeps_the_pose():
+    """Every observation invalid: H is 1e-9 I and b 0, so every step is zero
+    and rejected; the input pose comes back (up to the rounds' re-projection
+    onto SO(3)) with no inlier, and nothing raises."""
+    R0, t0, pts, uv, w, _ = (T(a) for a in _pose_problem("perturbed"))
+    res = Tpo.pose_optimize_core(CAM_T.kind, CAM_T.params, R0, t0, pts, uv, w,
+                                 torch.zeros(len(pts), dtype=torch.bool))
+    torch.testing.assert_close(res["R"], R0, atol=1e-6, rtol=0)
+    assert torch.equal(res["t"], t0)
+    assert not bool(res["inlier"].any()) and int(res["n_inliers"]) == 0
+
+
 def _ba_problem(key, K=6, M=250, noise_px=0.5, outliers=False):
     """tests/test_optim.py TestBundleAdjust._make_problem."""
     kp, kn, kq = jax.random.split(key, 3)
@@ -110,6 +137,39 @@ def test_ba_iterate(robust):
     np.testing.assert_allclose(pt.poses_t.numpy(), np.asarray(pj.poses_t), rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(pt.points.numpy(), np.asarray(pj.points), rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(ct.numpy(), np.asarray(cj), rtol=1e-3)
+
+
+@pytest.mark.parametrize("robust", [True, False])
+def test_ba_iterate_solve_ex_gives_solves_bits(robust, monkeypatch):
+    """The Schur solve's solve_ex without its error check gives bit for bit
+    what the checking torch.linalg.solve gave."""
+    prob = _to_port(_ba_problem(jax.random.PRNGKey(3)))
+    run = lambda: Tba.ba_iterate(CAM_T.kind, CAM_T.params, prob, 5, robust, 5.991)  # noqa: E731
+    new, new_costs = run()
+    solve = torch.linalg.solve
+    monkeypatch.setattr(torch.linalg, "solve_ex", lambda A, B, check_errors=False: (
+        solve(A, B), torch.zeros((), dtype=torch.int32)))
+    old, old_costs = run()
+    for k in ("poses_R", "poses_t", "points"):
+        assert torch.equal(getattr(new, k), getattr(old, k)), k
+    assert torch.equal(new_costs, old_costs)
+
+
+def test_ba_iterate_rejects_the_step_of_a_singular_system(monkeypatch):
+    """Every Schur system made exactly singular (all zeros): the checking
+    solve raised on it; the LM takes the non-finite step as rejected, keeps
+    the problem's poses and points and raises nothing."""
+    prob = _to_port(_ba_problem(jax.random.PRNGKey(3)))
+    zeros = torch.zeros(prob.poses_R.shape[0] * 6, prob.poses_R.shape[0] * 6)
+    with pytest.raises(torch.linalg.LinAlgError):
+        torch.linalg.solve(zeros, torch.ones(len(zeros)))
+    solve_ex = torch.linalg.solve_ex
+    monkeypatch.setattr(torch.linalg, "solve_ex", lambda A, B, check_errors=False: solve_ex(
+        torch.zeros_like(A), B, check_errors=check_errors))
+    out, costs = Tba.ba_iterate(CAM_T.kind, CAM_T.params, prob, 3, True, 5.991)
+    for k in ("poses_R", "poses_t", "points"):
+        assert torch.equal(getattr(out, k), getattr(prob, k)), k
+    assert costs.shape == (3,)
 
 
 @pytest.mark.parametrize("case", ["converges", "noise_free", "outlier_edges"])

@@ -72,3 +72,107 @@ def test_not_enough_motion_resets_the_map(monkeypatch):
     assert tripped, "bad_imu never fired on a motion-starved rig"
     assert not sys_.store.imu_initialized
     assert sys_.vi.stage == 0
+
+
+def test_imu_init_cannot_land_between_a_frame_and_its_keyframe():
+    """The async run with the staged IMU init held back until a keyframe is
+    being inserted, then attempted from another thread under the map lock
+    while the tracker preintegrates the keyframe's chain link. The frame's
+    pose is final there: a rescale landing before the insertion would leave
+    the keyframe in the old gauge and lose tracking from the next frame on.
+    The init has to wait for the lock and land where the tracker re-checks
+    the map, and tracking stays OK through it."""
+    import threading
+
+    sys_, ext = build_vi("torch", VI_SMALL, device="cpu", async_mapping=True)
+    d = VI_DROPOUT
+    tr, vi, lock = sys_.tracker, sys_.vi, sys_.worker.map_lock
+    init, integrate, create_kf = vi.maybe_initialize, vi.integrate, tr._create_keyframe
+    ev = dict(fired=False, inserting=False, landed_inside=None)
+
+    def held_back(now_ts):  # the worker's init waits for the attempt below
+        return init(now_ts) if ev["fired"] else False
+
+    def attempt_init():
+        with lock:
+            ev["landed_inside"] = ev["inserting"]
+            init(float(sys_.store.kf_timestamp[tr._last_kf]))
+
+    def integrate_in_insertion(*a):
+        if ev["inserting"] and not ev["fired"] and tr.frame_id >= 20:
+            ev["fired"] = True
+            th = threading.Thread(target=attempt_init)
+            th.start()
+            th.join(timeout=2.0)
+        return integrate(*a)
+
+    def create_keyframe(frame):
+        ev["inserting"] = True
+        try:
+            return create_kf(frame)
+        finally:
+            ev["inserting"] = False
+
+    vi.maybe_initialize, vi.integrate, tr._create_keyframe = (
+        held_back, integrate_in_insertion, create_keyframe)
+    plan = [(i, False) for i in range(34)]
+    try:
+        states, _, _, when = drive_vi(sys_, ext, plan, d["frame_dt"], d["grav"])
+        sys_.finish()
+    finally:
+        sys_.shutdown()
+    assert ev["fired"], "no keyframe was inserted from frame 20 on"
+    assert sys_.store.imu_initialized
+    assert all(s == OK for s in states[2:]), states
+    assert when.tolist() == list(range(2, 34))
+    assert ev["landed_inside"] is False, "the init ran while a keyframe was being inserted"
+
+
+def test_tracker_waits_for_the_mapper_until_the_imu_is_initialized():
+    """The async run with the mapping worker slowed by 0.6 s a keyframe, so
+    that the tracker would outrun it: until the IMU is initialized a frame
+    starts only once the worker took the last keyframe. No keyframe waits
+    behind another, each one gets its local BA, and the staged init runs
+    with the tracker at most one keyframe ahead of it."""
+    import time
+
+    sys_, ext = build_vi("torch", VI_SMALL, device="cpu", async_mapping=True)
+    d = VI_DROPOUT
+    mapper, vi, store = sys_.mapper, sys_.vi, sys_.store
+    process, init = mapper.process_keyframe, vi.maybe_initialize
+    seen = dict(queue=[], do_ba=[], ahead=None)
+
+    def slow_process(k, **kw):
+        time.sleep(0.6)
+        if not store.imu_initialized:
+            seen["do_ba"].append(kw.get("do_ba", True))
+        return process(k, **kw)
+
+    def first_init(now_ts):
+        ran = init(now_ts)
+        if ran and seen["ahead"] is None:
+            ids = store.valid_kf_ids()
+            seen["ahead"] = int((store.kf_timestamp[ids] > now_ts).sum())
+        return ran
+
+    track = sys_.tracker.track
+
+    def track_and_look(*a, **kw):
+        out = track(*a, **kw)
+        if not store.imu_initialized:
+            seen["queue"].append(sys_.worker.queue_size())
+        return out
+
+    mapper.process_keyframe, vi.maybe_initialize = slow_process, first_init
+    sys_.tracker.track = track_and_look
+    try:
+        states, _, _, _ = drive_vi(sys_, ext, [(i, False) for i in range(24)],
+                                   d["frame_dt"], d["grav"])
+        sys_.finish()
+    finally:
+        sys_.shutdown()
+    assert store.imu_initialized
+    assert all(s == OK for s in states[2:]), states
+    assert max(seen["queue"]) <= 1, seen["queue"]
+    assert seen["ahead"] <= 1, seen["ahead"]
+    assert all(seen["do_ba"]) and len(seen["do_ba"]) >= 4, seen["do_ba"]
