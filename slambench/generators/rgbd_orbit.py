@@ -113,12 +113,11 @@ class Feed:
         spans.wrap(net, "backbone_local", "hfnet", info=lambda a: ("local",) + hw(a))
         spans.wrap(net, "local_head", "hfnet", info=lambda a: ("heads",))
 
-    def attach(self, system, cap, spans):
+    def attach(self, system, spans):
         if spans is not None:
             spans.wrap_call(system, "extractor", "extract")
             spans.wrap(system.tracker, "track", "track")
             spans.wrap(system.mapper, "process_keyframe", "mapping")
-        cap.hook_extractor(system)
 
     def detach(self, system):
         system.shutdown()

@@ -3,9 +3,10 @@
 Everything that belongs to a cell is found by name under slambench/:
 workloads/<cell>.json names the configuration (configs/<name>.json), the
 traffic mix (traffic/<name>.json, which names its generator,
-generators/<name>.py) and the check's sample sizes and limits; each metric
-of BENCHMARK.json is read by metrics/<metric>.py. Adding a cell, a mix or a
-metric adds files and entries and edits none.
+generators/<name>.py) and the check's sample sizes and limits, each kind of
+sample a module checks/<kind>.py (harness/check.py); each metric of
+BENCHMARK.json is read by metrics/<metric>.py. Adding a cell, a mix, a check
+or a metric adds files and entries and edits none.
 
 The window is a closed loop with one camera: a frame goes in when the
 previous frame's pose has come back, and a frame's latency is the host
@@ -101,8 +102,10 @@ class Run:
         self.episodes = 0          # episodes finished in the window
         self.spans = None          # harness.spans.Spans (traced runs)
         self.trace = None          # harness.trace.Trace (traced runs)
+        self.window_frames = []    # (t0, t1) perf_counter s around each feed.track in the window
         self.launches_window = {}  # row_top2 launches by (NA, NB, D) in the window
-        self.ba_detail = []        # (share, C_in, C_out, C_ref) of each BA sample checked
+        self.slice_launches = []   # ... in each traced slice
+        self.detail = {}           # what each check kind reports beside its numbers
         self.feed = None
 
 
@@ -114,46 +117,51 @@ def merged(base, over):
     return out
 
 
-def compare(C, cap, feed, R, device, control=False):
-    """The check's numbers from the window's samples; with `control`, the
+def compare(checks, cap, feed, R, device, control=False):
+    """The check's numbers from the window's samples, kind by kind, and
+    lost_frames (frames with no pose) for every cell; with `control`, the
     reference computed with TF32 on stands in for the program, in the
-    numbers that have a control (not the BA sample or the lost frames)."""
+    numbers that have such a control."""
     numbers = {}
-    if cap.samples("extract"):
-        numbers.update(C.extract_numbers(cap.samples("extract"), feed.ref_params,
-                                         feed.ref_extractor, device, control))
-    if cap.samples("track_step"):
-        numbers.update(C.track_numbers(cap.samples("track_step"), control))
+    for kind, mod in checks.items():
+        numbers.update(mod.numbers(cap.samples(kind), R, feed, device, control))
     if not control:
         numbers["lost_frames"] = float(R.failed)
-        if cap.samples("ba"):
-            numbers.update(C.ba_numbers(cap.samples("ba"), R.config["camera"], R.ba_detail))
     return numbers
 
 
 class Slices:
     """Start and stop the device trace at frame boundaries so that it
     covers the workload's `trace_slices`: [start, length] pairs as shares
-    of the window, spread over it."""
+    of the window, spread over it. `counts()` (the program's row_top2
+    launches by shape) is read at each slice's start and stop, into
+    `launches`: the launches of each slice."""
 
-    def __init__(self, tracer, spans, slices, seconds):
-        self.tracer, self.spans = tracer, spans
+    def __init__(self, tracer, spans, slices, seconds, counts):
+        self.tracer, self.spans, self.counts = tracer, spans, counts
         self.todo = [(a * seconds, (a + b) * seconds) for a, b in slices]
+        self.launches, self._at_start = [], None
 
     def step(self, now):
         """Called between frames with the seconds since the window opened."""
         if self.spans.marking and now >= self.todo[0][1]:
-            self.spans.marking = False
-            self.tracer.stop(len(self.spans.boundaries))
+            self._stop()
             self.todo.pop(0)
         if not self.spans.marking and self.todo and now >= self.todo[0][0]:
             self.tracer.start(len(self.spans.boundaries))
+            self._at_start = self.counts()
             self.spans.marking = True
+
+    def _stop(self):
+        end = self.counts()
+        self.launches.append({k: n - self._at_start.get(k, 0) for k, n in end.items()
+                              if n > self._at_start.get(k, 0)})
+        self.spans.marking = False
+        self.tracer.stop(len(self.spans.boundaries))
 
     def close(self):
         if self.spans.marking:
-            self.spans.marking = False
-            self.tracer.stop(len(self.spans.boundaries))
+            self._stop()
 
 
 def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, overrides=None,
@@ -173,6 +181,7 @@ def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, ov
     tr = merged(load_json("traffic", wl["traffic"] + ".json"), over.get("traffic"))
     section = "per_layer" if trace else "end_to_end"
     readers = {m["name"]: load_module("metrics", m["name"]) for m in cell_metrics(cell, section)}
+    checks = {kind: load_module("checks", kind) for kind in wl["check"]["samples"]}
     if device is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() < wl["chips"]:
             raise RunError(f"{cell} needs {wl['chips']} CUDA device(s); "
@@ -183,9 +192,6 @@ def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, ov
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
     from hfnet_slam_torch.ops import bf_match
-    from hfnet_slam_torch.optim import ba
-    from hfnet_slam_torch.slam import fused
-    from hfnet_slam_torch.slam.local_mapping import LocalMapper
 
     from . import check as C
 
@@ -200,10 +206,8 @@ def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, ov
 
     cap = C.Capture(seed, wl["check"]["samples"])
     saved = []
-    if "track_step" in wl["check"]["samples"]:
-        saved.append((fused, "track_step", cap.hook_function(fused, "track_step", "track_step")))
-    if "ba" in wl["check"]["samples"]:
-        saved.extend(cap.hook_mapping(LocalMapper, ba))
+    for mod in checks.values():
+        saved.extend(mod.hook(cap, R, feed))
 
     spans = tracer = slicer = None
     if trace:
@@ -213,7 +217,8 @@ def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, ov
         spans, tracer = Spans(fence=True), Trace()
         R.spans, R.trace = spans, tracer
         feed.attach_shared(spans)
-        slicer = Slices(tracer, spans, wl.get("trace_slices", [[0.0, 1.0]]), seconds)
+        slicer = Slices(tracer, spans, wl.get("trace_slices", [[0.0, 1.0]]), seconds,
+                        lambda: dict(bf_match.shape_launches))
 
     sync()
     bf_match.reset_counts()
@@ -228,12 +233,13 @@ def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, ov
     system = None
     while not done and time.perf_counter() < end:
         system = feed.new_episode()
-        feed.attach(system, cap, spans)
+        feed.attach(system, spans)
         for i in range(feed.n_frames):
             t0 = time.perf_counter()
             out = feed.track(system, i)
             sync()
             t1 = time.perf_counter()
+            R.window_frames.append((t0, t1))
             if t1 > end:
                 done = True
                 break
@@ -248,8 +254,9 @@ def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, ov
     R.launches_window = dict(bf_match.shape_launches)
     if slicer is not None:
         slicer.close()
-    for mod, name, fn in saved:
-        setattr(mod, name, fn)
+        R.slice_launches = slicer.launches
+    for obj, name, fn in reversed(saved):
+        setattr(obj, name, fn)
     if tracer is not None:
         tracer.read()
     if spans is not None:
@@ -264,10 +271,10 @@ def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, ov
 
     # ---- the comparison with the reference, after the window --------------------
     t_check = time.perf_counter()
-    numbers = compare(C, cap, feed, R, device)
+    numbers = compare(checks, cap, feed, R, device)
     correct, table = C.judge(numbers, wl["check"]["limits"])
     if control:
-        R.control_table = C.judge(dict(numbers, **compare(C, cap, feed, R, device, True)),
+        R.control_table = C.judge(dict(numbers, **compare(checks, cap, feed, R, device, True)),
                                   wl["check"]["limits"])[1]
 
     check_s = time.perf_counter() - t_check
@@ -290,14 +297,20 @@ def run(cell, seed, seconds, trace, device=None, setup_start=None, log=print, ov
     log(f"setup parts (s): {json.dumps(R.setup_parts)} setup_s {R.setup_s}")
     log(f"samples: {len(R.frame_s)} frames in {seconds} s, {R.episodes} whole episodes, "
         f"checked {', '.join(f'{k} {len(cap.samples(k))}' for k in cap.res)} in {check_s:.2f} s; "
-        f"BA (share, C_in, C_out, C_ref): {json.dumps(R.ba_detail)}")
+        f"detail: {json.dumps(R.detail)}")
     if tracer is not None:
+        from . import program_trace
+
+        groups = program_trace.frame_groups(R)
+        log(f"program frames counted: {0 if groups is None else len(groups)} of "
+            f"{len(R.window_frames)} window frames; row_top2 launches in each slice: "
+            f"{[{'x'.join(map(str, k)): n for k, n in sl.items()} for sl in R.slice_launches]}")
         log(f"trace: {len(tracer.kernels)} device activities, {len(tracer.markers)} markers for "
             f"{len(spans.boundaries)} span boundaries, read in {tracer.read_s:.2f} s; "
             f"slices (start s, length s, idle %, markers, boundaries): "
             f"{json.dumps(tracer.slice_idle())}")
     if run_out is not None:
-        run_out["run"] = R
+        run_out["run"], run_out["cap"] = R, cap
         if control:
             run_out["control"] = R.control_table
     return result, table

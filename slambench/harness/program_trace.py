@@ -8,10 +8,12 @@ set-up: so the recorder is on in exactly the traced runs, and the untraced
 runs that give the end-to-end metrics run with it off. A program without
 the recorder (no `enable`) leaves every reading here None.
 
-Which frames count: the program's `frame` spans that contain one of the
-harness's `extract` spans (harness/spans.py opens those only on the
-window's systems), so the warm-up's frames do not. Every span that carries
-a counted frame's id belongs to it, the mapping worker's too.
+Which frames count: the program's `frame` spans that lie inside one of the
+harness's window frames (Run.window_frames: the host clock's [t0, t1] around
+each call into the program in the measured window; time.perf_counter and
+the recorder's perf_counter_ns read one clock), so the set-up's frames do
+not. Every span that carries a counted frame's id belongs to it, the
+mapping worker's too.
 
 The shared clock: the recorder's anchor maps its perf_counter_ns times onto
 the unix-epoch clock of the profiler's events (Trace.kernels), so each idle
@@ -38,10 +40,8 @@ def frame_groups(run):
     """[(frame record, [records carrying its id])] of the counted frames,
     or None where nothing can be read."""
     rec = RECORDER
-    if rec is None or run.spans is None:
-        return None
-    extracts = sorted((a, b) for a, b, _ in run.spans.spans.get("extract", []))
-    if not extracts:
+    window = sorted(getattr(run, "window_frames", None) or [])
+    if rec is None or not window:
         return None
     recs = [r for r in rec.records() if r.t1 is not None]
     by_fid = {}
@@ -51,9 +51,9 @@ def frame_groups(run):
     out, j = [], 0
     for f in sorted((r for r in recs if r.name == "frame"), key=lambda r: r.t0):
         a, b = f.t0 * 1e-9, f.t1 * 1e-9
-        while j < len(extracts) and extracts[j][0] < a:
+        while j < len(window) and window[j][1] < a:
             j += 1
-        if j < len(extracts) and extracts[j][1] <= b:
+        if j < len(window) and window[j][0] <= a and b <= window[j][1]:
             out.append((f, by_fid.get(f.frame, [f])))
     return out or None
 
@@ -71,6 +71,16 @@ def per_frame(run, names=None, counter=None):
         else:
             out.append(sum(r.t1 - r.t0 for r in rs if r.name in names) * 1e-9)
     return out
+
+
+def span_median_ms(run, name):
+    """Median host ms of the program's spans named `name` in the counted
+    frames, one a span; None where there is none."""
+    groups = frame_groups(run)
+    if groups is None:
+        return None
+    v = [(r.t1 - r.t0) * 1e-9 for _, rs in groups for r in rs if r.name == name]
+    return 1e3 * percentile(v, 50) if v else None
 
 
 def median_ms(run, names):

@@ -11,6 +11,13 @@ H100_FP32_FLOPS = 67e12
 H100_TF32_FLOPS = 495e12
 
 
+def row_top2_bound_s(launches):
+    """The least seconds the card could take for row_top2 launches
+    {(NA, NB, D): count}: 3 x 2 NA NB D operations a launch (its 3xTF32
+    products) at the TF32 peak; its bytes never bind."""
+    return sum(3.0 * 2.0 * a * b * d * n for (a, b, d), n in launches.items()) / H100_TF32_FLOPS
+
+
 def percentile(values, q):
     """q-th percentile (0-100) with linear interpolation between order
     statistics (numpy's default)."""

@@ -1,8 +1,7 @@
 """The device trace of a traced run: torch.profiler over a few slices of
 the measured window (one profiler session each, started and stopped
 between frames), CUDA activity only, read straight from the Kineto events
-(the method of the port's tools/profile_slice.py without the CPU operator
-events, which would double the trace).
+(no CPU operator events, which would double the trace).
 
 From it: the device's busy seconds (the union of kernel, copy and set
 intervals) in the traced slices, kernel time by name, and, through the

@@ -1,3 +1,4 @@
 """The plain reference of the benchmark's correctness checks: plain PyTorch
-written from the published definitions and frozen from the port at commit
-27c9911. Nothing here imports the program, JAX or the JAX package."""
+written from the published definitions, parts of it frozen from the port
+(the files name their commit). Nothing here imports the program, JAX or the
+JAX package."""

@@ -47,10 +47,13 @@ def test_compares_top_level_names_whole(tmp_path):
 
 
 def test_reference_and_frozen_copies_import_no_program():
+    seen = set()
     for sub in ("reference", "frozen"):
         for p in _files(sub):
+            seen.add(os.path.relpath(p, SB))
             names = _top_names(p)
             assert "hfnet_slam_torch" not in names and not (names & FORBIDDEN), p
             with open(p) as f:
                 assert "hfnet_slam_torch" not in f.read().replace(
                     "port's", "").split('"""', 2)[-1], p
+    assert {"reference/loop.py", "frozen/ring.py"} <= seen

@@ -1,8 +1,8 @@
 """The readers of the program's own spans and counters
-(harness/program_trace.py and the six metrics on it) against hand
-arithmetic, on a synthetic run: two window frames and a warm-up frame of
-the program's recorder, the harness's extract spans, and a device trace of
-two slices."""
+(harness/program_trace.py and the metrics on it) against hand arithmetic,
+on a synthetic run: two window frames and a warm-up frame of the program's
+recorder, the harness's window frames (and the extract spans that counted
+frames before), and a device trace of two slices."""
 import types
 
 import pytest
@@ -48,11 +48,12 @@ def run(monkeypatch):
     monkeypatch.setattr(PT, "RECORDER", rec)
     spans = types.SimpleNamespace(spans={"extract": [(0.0005, 0.0295, None),
                                                      (0.2005, 0.2295, None)]})
+    window = [(-0.0002, 0.1003), (0.1998, 0.3001)]   # around each call into the program
     tr = Trace()
     ks = [(0, 20), (45, 55), (90, 98), (210, 220), (296, 310), (330, 340)]
     tr.kernels = [("k", U0 + a * MS, U0 + b * MS) for a, b in ks]
     tr.cuts = {U0 + 210 * MS}   # the second slice's first activity
-    return types.SimpleNamespace(spans=spans, trace=tr)
+    return types.SimpleNamespace(spans=spans, trace=tr, window_frames=window)
 
 
 def test_counted_frames_are_the_windows(run):
