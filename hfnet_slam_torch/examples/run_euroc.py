@@ -13,7 +13,9 @@ Horn-aligned, scale-corrected ATE is printed.
 
 SEQ_DIR is .../MH_01_easy/mav0. `--weights` is an HF-Net parameter file in
 the reference's flat .npz format; without it HF-Net has random weights from
-a fixed seed and the descriptors mean nothing. The default device is CUDA.
+a fixed seed and the descriptors mean nothing. The settings key
+`Extractor.depthMultiplier` (optional) sets HF-Net's width: 0.75 is the
+published network; without it, the weights' own width, or 1.0. The default device is CUDA.
 `main(argv)` returns the (shut down) SLAMSystem for inspection.
 """
 from __future__ import annotations
@@ -22,7 +24,6 @@ import argparse
 import os
 
 import numpy as np
-import torch
 
 
 def parse_args(argv=None):
@@ -40,11 +41,10 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from .. import device as D
-    from ..models import hfnet
     from ..models.extractor import HFExtractor
     from ..slam.system import SLAMSystem
     from ..utils.datasets import load_euroc
-    from ..utils.settings import Settings
+    from ..utils.settings import Settings, depth_multiplier, make_hfnet
     from ..utils.timing import timings
 
     dev = D.resolve(args.device)
@@ -54,11 +54,9 @@ def main(argv=None):
     n = len(seq) if not args.max_frames else min(args.max_frames, len(seq))
     print(f"sequence: {n} frames @ {cam.width}x{cam.height} on {dev}")
 
-    if args.weights:
-        net = hfnet.load_params(args.weights, device=dev)
-    else:
+    if not args.weights:
         print("WARNING: no --weights; random HF-Net (pipeline smoke only)")
-        net = hfnet.HFNet(torch.Generator(device=dev).manual_seed(0))
+    net = make_hfnet(depth_multiplier(args.config), args.weights, dev)
     # async mapping/loop/GBA workers: tracking overlaps local BA and loop
     # closing, as the reference's thread trio
     cfg = settings.make_system_config(async_mapping=True)

@@ -11,15 +11,14 @@ so the ATE is printed without scale correction too.
 
 SEQ_DIR is .../MH_01_easy/mav0 with imu0/data.csv; the settings file carries
 the IMU.* keys and IMU.T_b_c1. Without `--weights` HF-Net has random
-weights from a fixed seed. The default device is CUDA. The port's recorder
+weights from a fixed seed; `Extractor.depthMultiplier` sets its width, as
+in run_euroc. The default device is CUDA. The port's recorder
 (utils/timing.py) is on for the run, and its report is printed. `main(argv)`
 returns the (shut down) SLAMSystem for inspection.
 """
 from __future__ import annotations
 
 import argparse
-
-import torch
 
 
 def parse_args(argv=None):
@@ -34,15 +33,15 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build_extractor(settings, cam, n_slots, weights, dev):
-    from ..models import hfnet
+def build_extractor(settings, cam, n_slots, weights, dev, depth_multiplier=None):
+    """HF-Net (the .npz `weights` or a seed-0 net, at `depth_multiplier`:
+    utils/settings.make_hfnet) behind the settings' HFExtractor."""
     from ..models.extractor import HFExtractor
+    from ..utils.settings import make_hfnet
 
-    if weights:
-        net = hfnet.load_params(weights, device=dev)
-    else:
+    if not weights:
         print("WARNING: no --weights; random HF-Net (pipeline smoke only)")
-        net = hfnet.HFNet(torch.Generator(device=dev).manual_seed(0))
+    net = make_hfnet(depth_multiplier, weights, dev)
     return HFExtractor(net, (cam.height, cam.width), n_features=settings.n_features,
                        n_levels=settings.n_levels, scale_factor=settings.scale_factor,
                        threshold=settings.threshold, pad_to=n_slots, device=dev)
@@ -99,7 +98,7 @@ def main(argv=None):
     from .. import device as D
     from ..slam.system import SLAMSystem
     from ..utils.datasets import load_euroc
-    from ..utils.settings import SENSOR_IMU_MONOCULAR, Settings
+    from ..utils.settings import SENSOR_IMU_MONOCULAR, Settings, depth_multiplier
     from ..utils.timing import timings
 
     dev = D.resolve(args.device)
@@ -109,7 +108,8 @@ def main(argv=None):
     n = len(seq) if not args.max_frames else min(args.max_frames, len(seq))
     print(f"sequence: {n} frames @ {cam.width}x{cam.height} + IMU on {dev}")
     cfg = settings.make_system_config()
-    extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev)
+    extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev,
+                                depth_multiplier(args.config))
     slam = SLAMSystem(cam, extractor, cfg, imu_calib=settings.make_imu_calib(), device=dev)
     timings.enable()
     try:

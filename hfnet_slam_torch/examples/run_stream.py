@@ -13,9 +13,10 @@ wire format):
     result = cli.send_image(gray_u8, ts)          # {'state', 'R', 't'}
 
 With `--settings` the system is the settings file's camera with HF-Net
-(random weights from seed 0: no checkpoint is in the repository) and async
-mapping; without it, a synthetic demo whose extractor reads the frame index
-from the image's first two pixels. `--fake` runs a demo client in-process
+(random weights from seed 0: no checkpoint is in the repository; its width
+from `Extractor.depthMultiplier`, default 1.0) and async mapping; without
+it, a synthetic demo whose extractor reads the frame index from the
+image's first two pixels. `--fake` runs a demo client in-process
 for `--frames` frames and exits. The default device is CUDA. `main(argv)`
 returns a dict of what it printed.
 """
@@ -42,8 +43,6 @@ def parse_args(argv=None):
 
 def build_system(args):
     """The SLAMSystem `args` describe (see the module docstring)."""
-    import torch
-
     from .. import device as D
     from ..geometry import cameras
     from ..slam.system import SLAMSystem, SystemConfig
@@ -51,13 +50,12 @@ def build_system(args):
     dev = D.resolve(args.device)
     if args.settings:
         from ..models.extractor import HFExtractor
-        from ..models.hfnet import HFNet
-        from ..utils.settings import Settings
+        from ..utils.settings import Settings, depth_multiplier, make_hfnet
 
         s = Settings.from_yaml(args.settings)
         cam = s.make_camera(dev)
         cfg = s.make_system_config(dev, async_mapping=True)
-        net = HFNet(torch.Generator(device=dev).manual_seed(0))
+        net = make_hfnet(depth_multiplier(args.settings), None, dev)
         ext = HFExtractor(net, (cam.height, cam.width), n_features=s.n_features,
                           n_levels=s.n_levels, scale_factor=s.scale_factor,
                           threshold=s.threshold, pad_to=cfg.n_slots, device=dev)

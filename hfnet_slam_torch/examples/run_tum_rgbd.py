@@ -39,7 +39,7 @@ def main(argv=None):
     from .. import device as D
     from ..slam.system import SLAMSystem
     from ..utils.datasets import load_tum_rgbd
-    from ..utils.settings import SENSOR_RGBD, Settings
+    from ..utils.settings import SENSOR_RGBD, Settings, depth_multiplier
     from ..utils.timing import timings
     from .run_euroc_inertial import build_extractor, report_ate
 
@@ -51,7 +51,8 @@ def main(argv=None):
     print(f"sequence: {n} rgb-d frames @ {cam.width}x{cam.height} on {dev}")
     # the sequence already returns metres: scale once
     cfg = settings.make_system_config(dev, depth_factor=1.0)
-    extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev)
+    extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev,
+                                depth_multiplier(args.config))
     slam = SLAMSystem(cam, extractor, cfg, device=dev)
     timings.enable()
     try:

@@ -57,7 +57,8 @@ def main(argv=None):
     print(f"sequence: {n} frames @ {cam.width}x{cam.height}" + (" stereo" if args.stereo else "")
           + (" + IMU" if args.imu else "") + f" on {dev}")
     cfg = settings.make_system_config(dev)
-    extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev)
+    extractor = build_extractor(settings, cam, cfg.n_slots, args.weights, dev,
+                                ST.depth_multiplier(args.config))
     slam = SLAMSystem(cam, extractor, cfg,
                       imu_calib=settings.make_imu_calib() if args.imu else None, device=dev)
     timings.enable()

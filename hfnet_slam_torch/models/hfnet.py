@@ -19,6 +19,15 @@ Two details a plain translation gets wrong: XLA's 'SAME' padding of a
 stride-2 conv is asymmetric (`same_pad`: low = total // 2, the rest high),
 and the NetVLAD intra-normalization runs over the cluster axis K, as the
 reference's does.
+
+Width: `HFNet(generator, depth_multiplier)` scales the backbone as TF-slim's
+MobileNetV2 does (`channel_table`): conv0, every block's output and every
+expansion through `make_divisible`; the heads keep their sizes (256-d
+descriptor, 128-wide detector, 64 NetVLAD clusters, 4096-d projection),
+reading the backbone's endpoints at whatever width they have. HF-Net as
+published (arXiv:1812.03506, HFNet_SLAM) runs 0.75; the default 1.0 is the
+table `BLOCKS`, the reference package's. The .npz functions read the width
+from the arrays' shapes unless the caller gives it.
 """
 from __future__ import annotations
 
@@ -51,11 +60,46 @@ BLOCKS = [
     (6, 1, 320),  # global endpoint
 ]
 LOCAL_ENDPOINT = 5
+CONV0 = 32
 DESC_DIM = 256
 DETECTOR_GRID = 8
 N_CLUSTERS = 64
 GLOBAL_DIM = 4096
-GLOBAL_FEAT = 320
+GLOBAL_FEAT = 320   # the global feature's width at 1.0
+# the widths a checkpoint's shapes are matched against: the reference
+# package's 1.0 and HF-Net's published 0.75
+PUBLISHED_MULTIPLIERS = (1.0, 0.75)
+
+
+def make_divisible(v, divisor=8, min_value=None):
+    """TF-slim's `_make_divisible`: v rounded to the nearest multiple of
+    `divisor` (at least `min_value`, default `divisor`), one step more where
+    rounding loses over 10%."""
+    min_value = divisor if min_value is None else min_value
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    return new_v + divisor if new_v < 0.9 * v else new_v
+
+
+def channel_table(depth_multiplier=1.0):
+    """(conv0's channels, [(expansion, stride, out_channels)] of
+    layer_2..layer_18) at `depth_multiplier`: slim's depth_multiplier op on
+    every layer's output. At 1.0 this is (32, BLOCKS); at 0.75, conv0 24 and
+    outputs 16, 24, 24, 24, 48, 96 (local endpoint), 48, 48, 48, 48, 72, 72,
+    72, 120, 120, 120, 240 (global feature)."""
+    m = float(depth_multiplier)
+    return (make_divisible(CONV0 * m),
+            [(e, s, make_divisible(c * m)) for e, s, c in BLOCKS])
+
+
+def depth_multiplier_of(conv0, outs):
+    """The published multiplier whose channel_table has conv0's channels
+    `conv0` and block outputs `outs`; ValueError where none has."""
+    for m in PUBLISHED_MULTIPLIERS:
+        c0, table = channel_table(m)
+        if c0 == conv0 and [c for _, _, c in table] == list(outs):
+            return m
+    raise ValueError(f"HF-Net parameters: conv0 {conv0} and block widths {list(outs)} match no "
+                     f"depth multiplier of {PUBLISHED_MULTIPLIERS}")
 
 
 def same_pad(n: int, k: int, s: int):
@@ -128,7 +172,9 @@ class Block(nn.Module):
 
     def __init__(self, cin, expansion, stride, cout, generator=None):
         super().__init__()
-        mid = cin * expansion
+        # slim's expand_input_by_factor: the first block (expansion 1) keeps
+        # its input width, the others round cin * expansion to a multiple of 8
+        mid = cin if expansion == 1 else make_divisible(cin * expansion)
         self.residual = stride == 1 and cin == cout
         self.expand = Conv(cin, mid, 1, generator=generator) if expansion != 1 else None
         self.depthwise = Conv(mid, mid, 3, stride, groups=mid, generator=generator)
@@ -154,33 +200,44 @@ class HFNet(nn.Module):
     """The full HF-Net. `HFNet(generator)` draws the reference's He
     initialization (init_params' distributions) from `generator`, on the
     generator's device; `HFNet()` holds meta-device placeholders, which
-    `from_state` replaces."""
+    `from_state` replaces. `depth_multiplier` sets the backbone's width
+    (`channel_table`), fixed at construction."""
 
-    def __init__(self, generator: Optional[torch.Generator] = None):
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 depth_multiplier: float = 1.0):
         super().__init__()
         g = generator
-        self.conv0 = Conv(1, 32, 3, 2, generator=g)
-        blocks, cin = [], 32
-        for expansion, stride, cout in BLOCKS:
+        self.depth_multiplier = float(depth_multiplier)
+        cin, table = channel_table(depth_multiplier)
+        self.conv0 = Conv(1, cin, 3, 2, generator=g)
+        blocks = []
+        for expansion, stride, cout in table:
             blocks.append(Block(cin, expansion, stride, cout, generator=g))
             cin = cout
         self.blocks = nn.ModuleList(blocks)
-        self.desc0 = Conv(128, DESC_DIM, 3, generator=g)
+        local_c, global_c = table[LOCAL_ENDPOINT][2], table[-1][2]
+        self.desc0 = Conv(local_c, DESC_DIM, 3, generator=g)
         self.desc1 = Conv(DESC_DIM, DESC_DIM, 1, generator=g)
-        self.det0 = Conv(128, 128, 3, generator=g)
+        self.det0 = Conv(local_c, 128, 3, generator=g)
         self.det1 = Conv(128, DETECTOR_GRID ** 2 + 1, 1, generator=g)
-        self.vlad_memberships = Conv(GLOBAL_FEAT, N_CLUSTERS, 1, generator=g)
-        self.vlad_clusters = _param((N_CLUSTERS, GLOBAL_FEAT), None, g, scale=0.1)
-        self.proj = Dense(N_CLUSTERS * GLOBAL_FEAT, GLOBAL_DIM, generator=g)
+        self.vlad_memberships = Conv(global_c, N_CLUSTERS, 1, generator=g)
+        self.vlad_clusters = _param((N_CLUSTERS, global_c), None, g, scale=0.1)
+        self.proj = Dense(N_CLUSTERS * global_c, GLOBAL_DIM, generator=g)
 
     @classmethod
-    def from_state(cls, state: Mapping[str, torch.Tensor], device=None) -> "HFNet":
+    def from_state(cls, state: Mapping[str, torch.Tensor], device=None,
+                   depth_multiplier: Optional[float] = None) -> "HFNet":
         """An HFNet holding `state` (a state_dict of the port's layout) on
-        `device` (None means CUDA)."""
+        `device` (None means CUDA), at `depth_multiplier` (None: the width
+        of the state's shapes). A state of another width raises."""
         from ..device import resolve
 
         dev = resolve(device)
-        net = cls()
+        if depth_multiplier is None:
+            depth_multiplier = depth_multiplier_of(
+                state["conv0.weight"].shape[0],
+                [state[f"blocks.{i}.project.weight"].shape[0] for i in range(len(BLOCKS))])
+        net = cls(depth_multiplier=depth_multiplier)
         net.load_state_dict({k: v.to(dev) for k, v in state.items()}, assign=True)
         for p in net.parameters():
             p.requires_grad_(False)
@@ -189,8 +246,8 @@ class HFNet(nn.Module):
     # -- the reference's functions, NHWC at the boundaries --------------------
     def backbone_local(self, image):
         """image: (B,H,W,1) raw grayscale [0,255], H,W multiples of 8.
-        Returns (B,H/8,W/8,128): the backbone truncated at the local
-        endpoint, all that pyramid levels > 0 need."""
+        Returns (B,H/8,W/8,C) (C = 128 at width 1.0): the backbone truncated
+        at the local endpoint, all that pyramid levels > 0 need."""
         x = (_nchw(image) - 128.0) / 128.0
         x = relu6(self.conv0(x))
         for blk in self.blocks[: LOCAL_ENDPOINT + 1]:
@@ -198,7 +255,8 @@ class HFNet(nn.Module):
         return _nhwc(x)
 
     def backbone(self, image):
-        """-> (local_feat (B,H/8,W/8,128), global_feat (B,H/32,W/32,320))."""
+        """-> (local_feat (B,H/8,W/8,128), global_feat (B,H/32,W/32,320)) at
+        width 1.0."""
         local_feat = self.backbone_local(image)
         x = _nchw(local_feat)
         for blk in self.blocks[LOCAL_ENDPOINT + 1:]:
@@ -288,16 +346,23 @@ def _ref_keys():
     return keys
 
 
-def state_from_flat(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def state_from_flat(flat: Mapping[str, np.ndarray],
+                    depth_multiplier: Optional[float] = None) -> Dict[str, torch.Tensor]:
     """The reference's flat parameter dict (keys like `blocks/3/expand/w`,
-    HWIO arrays) -> a CPU state_dict of the port's layout. A missing or
-    extra key raises KeyError, a shape mismatch ValueError."""
-    expected = HFNet().state_dict()
+    HWIO arrays) -> a CPU state_dict of the port's layout, at
+    `depth_multiplier` (None: the width of conv0's and the blocks' output
+    shapes). A missing or extra key raises KeyError, a shape mismatch (a
+    width other than the one given among them) ValueError."""
     keys = _ref_keys()
     extra = set(flat) - set(keys)
     missing = set(keys) - set(flat)
     if extra or missing:
         raise KeyError(f"HF-Net parameters: missing {sorted(missing)[:4]}, extra {sorted(extra)[:4]}")
+    if depth_multiplier is None:
+        depth_multiplier = depth_multiplier_of(
+            np.shape(flat["conv0/w"])[-1],
+            [np.shape(flat[f"blocks/{i}/project/w"])[-1] for i in range(len(BLOCKS))])
+    expected = HFNet(depth_multiplier=depth_multiplier).state_dict()
     state = {}
     for rk, pk in keys.items():
         a = np.array(flat[rk], np.float32)
@@ -314,11 +379,14 @@ def flat_from_state(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
             for rk, pk in _ref_keys().items()}
 
 
-def load_params(path, device=None) -> HFNet:
-    """An HFNet from a .npz written by either package's save_params, on
-    `device` (None means CUDA)."""
+def load_params(path, device=None, depth_multiplier: Optional[float] = None) -> HFNet:
+    """An HFNet from a .npz written by either package's save_params (or at
+    another width by this one's), on `device` (None means CUDA), at
+    `depth_multiplier` (None: the file's width; a file of another width
+    raises ValueError)."""
     with np.load(path) as z:
-        return HFNet.from_state(state_from_flat({k: z[k] for k in z.files}), device)
+        state = state_from_flat({k: z[k] for k in z.files}, depth_multiplier)
+    return HFNet.from_state(state, device)
 
 
 def save_params(path, net: HFNet) -> None:

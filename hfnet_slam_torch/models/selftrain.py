@@ -34,12 +34,12 @@ _LOCAL_PREFIXES = ("conv0.", "desc0.", "desc1.", "det0.", "det1.") + tuple(
     f"blocks.{i}." for i in range(LOCAL_ENDPOINT + 1))
 
 
-def init_net(device=None) -> HFNet:
-    """The port's seed-0 HF-Net, frozen, on `device` (None means CUDA): He
-    initialization drawn from a CPU torch.Generator seeded 0, so the CPU and
-    the card start from the same weights."""
+def init_net(device=None, depth_multiplier: float = 1.0) -> HFNet:
+    """The port's seed-0 HF-Net at `depth_multiplier`, frozen, on `device`
+    (None means CUDA): He initialization drawn from a CPU torch.Generator
+    seeded 0, so the CPU and the card start from the same weights."""
     dev = D.resolve(device)
-    return HFNet(torch.Generator().manual_seed(0)).to(dev).eval()
+    return HFNet(torch.Generator().manual_seed(0), depth_multiplier).to(dev).eval()
 
 
 def trainable_copy(net: HFNet, device=None) -> HFNet:
@@ -49,7 +49,7 @@ def trainable_copy(net: HFNet, device=None) -> HFNet:
     dev = D.resolve(device)
     state = {k: v.detach().to(dev).clone() if k.startswith(_LOCAL_PREFIXES) else v.to(dev)
              for k, v in net.state_dict().items()}
-    out = HFNet()
+    out = HFNet(depth_multiplier=net.depth_multiplier)
     out.load_state_dict(state, assign=True)
     for k, p in out.named_parameters():
         p.requires_grad_(k.startswith(_LOCAL_PREFIXES))
@@ -108,9 +108,11 @@ def train_step(net, opt, img_a, img_b, uv_a, uv_b, tgt_a, tgt_b, hw, det_weight)
 
 
 def train(world, net=None, n_steps=300, n_pairs=192, lr=1e-3, det_weight=0.0,
-          pose_range=100, gap=(1, 6), seed=1, log_every=0, n_frames_cache=24, device=None):
+          pose_range=100, gap=(1, 6), seed=1, log_every=0, n_frames_cache=24, device=None,
+          depth_multiplier: float = 1.0):
     """Fine-tune HF-Net on a CylinderWorld on `device` (None means CUDA).
-    `net` (default: init_net) is not modified. Returns (net', stats): net'
+    `net` (default: init_net at `depth_multiplier`; a net given keeps its
+    own width) is not modified. Returns (net', stats): net'
     frozen and in eval mode, ready for HFExtractor; stats holds `steps`,
     `loss_first`, `loss_last` (the mean of the last 10), every step's
     `losses` and `train_s`.
@@ -124,7 +126,7 @@ def train(world, net=None, n_steps=300, n_pairs=192, lr=1e-3, det_weight=0.0,
     D.full_fp32()
     cam = world.cam
     hw = (cam.height, cam.width)
-    model = trainable_copy(init_net(dev) if net is None else net, dev)
+    model = trainable_copy(init_net(dev, depth_multiplier) if net is None else net, dev)
     opt = make_optimizer(model, lr)
     rng = np.random.default_rng(seed)
 

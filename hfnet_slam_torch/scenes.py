@@ -286,15 +286,16 @@ def textured_image(rng, h, w):
     return np.clip(img, 0, 255).astype(np.float32)
 
 
-def euroc_hfnet_system(device=None, dtype=torch.float32, seed=0):
-    """SLAMSystem on EuRoC cam0 whose extractor is HF-Net (He-initialized
-    from a torch.Generator seeded with `seed`, on the device) at bench.py's
-    headline configuration, running in `dtype`; 1024 slots, 256-d local and
-    4096-d global descriptors. Feed it 480x752 grayscale images through
-    `track_monocular`; the extractor is `system.extractor`."""
+def euroc_hfnet_system(device=None, dtype=torch.float32, seed=0, depth_multiplier=1.0):
+    """SLAMSystem on EuRoC cam0 whose extractor is HF-Net at
+    `depth_multiplier` (He-initialized from a torch.Generator seeded with
+    `seed`, on the device) at bench.py's headline configuration, running in
+    `dtype`; 1024 slots, 256-d local and 4096-d global descriptors. Feed it
+    480x752 grayscale images through `track_monocular`; the extractor is
+    `system.extractor`."""
     dev = resolve(device)
     cam = cameras.pinhole(**EUROC_CAM0, device=dev)
-    net = HFNet(torch.Generator(device=dev).manual_seed(seed))
+    net = HFNet(torch.Generator(device=dev).manual_seed(seed), depth_multiplier)
     ext = HFExtractor(net, (EUROC_CAM0["height"], EUROC_CAM0["width"]), **EUROC_HFNET,
                       dtype=dtype, device=dev)
     cfg = SystemConfig(n_slots=EUROC_HFNET["pad_to"], desc_dim=256, gdesc_dim=4096)

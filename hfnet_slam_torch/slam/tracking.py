@@ -392,6 +392,12 @@ class Tracker:
     # initialization
     # ------------------------------------------------------------------
     def _monocular_initialization(self, frame: Frame):
+        """Spans `track.init.search` (the matches against the reference
+        frame), `track.init.twoview` (the matches' normalized coordinates
+        and the H/F RANSAC, with their readbacks) and `track.init.map`
+        (CreateInitialMapMonocular, its BA included); counter
+        `init_attempts`, one a frame handed here."""
+        timings.count("init_attempts")
         cfg = self.cfg
         if self.init_ref is None or self.init_ref.n_feats < cfg.min_init_matches:
             self.init_ref = frame
@@ -409,7 +415,8 @@ class Tracker:
 
         # the (re)init attempts touch no store state: holding the lock
         # through them starves the mapping worker of the fresh map
-        idx = self._unlocked(run_search)
+        with timings.span("track.init.search"):
+            idx = self._unlocked(run_search)
         n_matches = int((idx >= 0).sum())
         if n_matches < cfg.min_init_matches:
             self.init_ref = frame
@@ -418,27 +425,29 @@ class Tracker:
 
         slots1 = np.nonzero(idx >= 0)[0]
         slots2 = idx[slots1]
-        xn1 = self.cam.unproject(rf.xy)[:, :2].cpu().numpy()
-        xn2 = self.cam.unproject(ff.xy)[:, :2].cpu().numpy()
-        N = len(idx)
-        m1 = np.zeros((N, 2), np.float32)
-        m2 = np.zeros((N, 2), np.float32)
-        m1[: len(slots1)] = xn1[slots1]
-        m2[: len(slots1)] = xn2[slots2]
-        mask = self._t(np.arange(N) < len(slots1), torch.bool)
-        m1_t, m2_t = self._t(m1), self._t(m2)
 
         def run_ransac():  # device-heavy H/F RANSAC: no store access
             samples = twoview.draw_samples(mask, 200, self._gen)
             res = twoview.reconstruct_two_views(m1_t, m2_t, mask, samples, 1.0 / self.cam.fx)
             return {k: v.cpu().numpy() for k, v in res.items()}
 
-        res = self._unlocked(run_ransac)
+        with timings.span("track.init.twoview"):
+            xn1 = self.cam.unproject(rf.xy)[:, :2].cpu().numpy()
+            xn2 = self.cam.unproject(ff.xy)[:, :2].cpu().numpy()
+            N = len(idx)
+            m1 = np.zeros((N, 2), np.float32)
+            m2 = np.zeros((N, 2), np.float32)
+            m1[: len(slots1)] = xn1[slots1]
+            m2[: len(slots1)] = xn2[slots2]
+            mask = self._t(np.arange(N) < len(slots1), torch.bool)
+            m1_t, m2_t = self._t(m1), self._t(m2)
+            res = self._unlocked(run_ransac)
         if (not bool(res["ok"]) or int(res["n_good"]) < cfg.min_init_points
                 or float(res["med_parallax_deg"]) < cfg.min_init_med_parallax_deg):
             return
-        self._create_initial_map(ref, frame, slots1, slots2, res["good"],
-                                 res["R21"], res["t21"], res["points"])
+        with timings.span("track.init.map"):
+            self._create_initial_map(ref, frame, slots1, slots2, res["good"],
+                                     res["R21"], res["t21"], res["points"])
 
     def _create_initial_map(self, ref, frame, slots1, slots2, good, R21, t21, p3d):
         """CreateInitialMapMonocular: two KFs, points, init BA, median-depth

@@ -2,9 +2,11 @@
 the card, beside what each stage could take at best.
 
     python3 -m hfnet_slam_torch.tools.extract_breakdown [--dtype float32|bfloat16] [--iters N]
+        [--depth-multiplier M]
 
 Builds `scenes.euroc_hfnet_system()` (EuRoC 752x480, 1000 features, 4
-levels, 1024 slots, random weights from seed 0), extracts a seeded textured
+levels, 1024 slots, random weights from seed 0, HF-Net at width M, default
+1.0; the published network is 0.75), extracts a seeded textured
 image once, keeps each stage's real inputs, then for every stage (per level:
 resize, network forward, NMS, top-K selection, subpixel refinement,
 descriptor sampling) and for the whole extraction reports
@@ -37,8 +39,9 @@ import torch
 from .peaks import H100_BF16_FLOPS, H100_BYTES_PER_S, H100_FP32_FLOPS
 
 
-def forward_cost(h, w, with_global, elem_bytes=4):
-    """FLOPs and bytes of HF-Net's forward on one (h,w) image.
+def forward_cost(h, w, with_global, elem_bytes=4, depth_multiplier=1.0):
+    """FLOPs and bytes of HF-Net's forward on one (h,w) image, the backbone
+    at `depth_multiplier` (models/hfnet.channel_table).
 
     Returns dict: flops (2 per multiply-add, over every conv, the NetVLAD
     contractions and the projection), min_bytes (the image, the weights the
@@ -46,7 +49,8 @@ def forward_cost(h, w, with_global, elem_bytes=4):
     moves), layer_bytes (each layer reading its input and weights and
     writing its output, as an unfused implementation does), and the
     depthwise convs' flops and layer bytes."""
-    from ..models.hfnet import BLOCKS, DESC_DIM, GLOBAL_DIM, GLOBAL_FEAT, LOCAL_ENDPOINT, N_CLUSTERS
+    from ..models.hfnet import (DESC_DIM, GLOBAL_DIM, LOCAL_ENDPOINT, N_CLUSTERS, channel_table,
+                                make_divisible)
 
     c = dict(flops=0.0, layer_bytes=0.0, weight_bytes=0.0, dw_flops=0.0, dw_bytes=0.0)
 
@@ -63,11 +67,13 @@ def forward_cost(h, w, with_global, elem_bytes=4):
             c["dw_bytes"] += lb
         return Ho, Wo
 
-    H, W = conv(h, w, 1, 32, 3, 2)
-    cin = 32
-    blocks = BLOCKS if with_global else BLOCKS[: LOCAL_ENDPOINT + 1]
+    c0, table = channel_table(depth_multiplier)
+    local_c, global_c = table[LOCAL_ENDPOINT][2], table[-1][2]
+    H, W = conv(h, w, 1, c0, 3, 2)
+    cin = c0
+    blocks = table if with_global else table[: LOCAL_ENDPOINT + 1]
     for i, (e, s, cout) in enumerate(blocks):
-        mid = cin * e
+        mid = cin if e == 1 else make_divisible(cin * e)
         if e != 1:
             conv(H, W, cin, mid, 1)
         Hn, Wn = conv(H, W, mid, mid, 3, s, groups=mid, dw=True)
@@ -75,15 +81,15 @@ def forward_cost(h, w, with_global, elem_bytes=4):
         H, W, cin = Hn, Wn, cout
         if i == LOCAL_ENDPOINT:
             lh, lw = H, W
-    conv(lh, lw, 128, DESC_DIM, 3)
+    conv(lh, lw, local_c, DESC_DIM, 3)
     conv(lh, lw, DESC_DIM, DESC_DIM, 1)
-    conv(lh, lw, 128, 128, 3)
+    conv(lh, lw, local_c, 128, 3)
     conv(lh, lw, 128, 65, 1)
     out_bytes = (h * w + lh * lw * DESC_DIM) * elem_bytes
     if with_global:
-        conv(H, W, GLOBAL_FEAT, N_CLUSTERS, 1)
-        c["flops"] += 2.0 * H * W * N_CLUSTERS * GLOBAL_FEAT  # sum_hw m f
-        kc = N_CLUSTERS * GLOBAL_FEAT
+        conv(H, W, global_c, N_CLUSTERS, 1)
+        c["flops"] += 2.0 * H * W * N_CLUSTERS * global_c  # sum_hw m f
+        kc = N_CLUSTERS * global_c
         c["flops"] += 2.0 * kc * GLOBAL_DIM
         pb = (kc * GLOBAL_DIM + GLOBAL_DIM + kc) * elem_bytes  # projection + clusters
         c["weight_bytes"] += pb
@@ -186,7 +192,7 @@ def breakdown(ext, image, iters=20):
             else:
                 def fwd(lv=lv):
                     return ext.net.local_head(ext.net.backbone_local(lv))
-            cost = forward_cost(h, w, lvl == 0, eb)
+            cost = forward_cost(h, w, lvl == 0, eb, ext.net.depth_multiplier)
             add(f"L{lvl} forward", fwd, cost["flops"], cost["min_bytes"], peak,
                 layer_bytes=cost["layer_bytes"], depthwise_flops=cost["dw_flops"],
                 depthwise_layer_bytes=cost["dw_bytes"],
@@ -212,7 +218,8 @@ def breakdown(ext, image, iters=20):
     # the image, every weight and the padded record, once
     t_ops = sum(r["ops_ms"] for r in rows)
     n = ext.pad_to
-    nbytes = (4.0 * H * W + forward_cost(H, W, True, eb)["weight_bytes"]
+    weights = forward_cost(H, W, True, eb, ext.net.depth_multiplier)["weight_bytes"]
+    nbytes = (4.0 * H * W + weights
               + n * (8 + 4 + 4 + 4 * 256 + 1) + 4 * 4096)
     with torch.inference_mode():
         ms = _events_ms(lambda: ext(img), iters)
@@ -235,19 +242,22 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--depth-multiplier", type=float, default=1.0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("extract_breakdown: needs a CUDA card")
     from ..scenes import euroc_hfnet_system, textured_image
 
-    sys_ = euroc_hfnet_system(dtype=getattr(torch, args.dtype))
+    sys_ = euroc_hfnet_system(dtype=getattr(torch, args.dtype),
+                              depth_multiplier=args.depth_multiplier)
     ext = sys_.extractor
     image = textured_image(np.random.default_rng(0), *ext.image_hw)
     rows = breakdown(ext, image, args.iters)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
-    print(json.dumps({"card": smi, "dtype": args.dtype, "image_hw": list(ext.image_hw),
+    print(json.dumps({"card": smi, "dtype": args.dtype,
+                      "depth_multiplier": args.depth_multiplier, "image_hw": list(ext.image_hw),
                       "level_hw": ext.level_hw, "budgets": ext.budgets, "stages": rows}))
 
 

@@ -186,6 +186,31 @@ def load_yaml(path) -> dict:
         return parse_opencv_yaml(f.read())
 
 
+def depth_multiplier(path) -> Optional[float]:
+    """HF-Net's width from a settings file's optional key
+    `Extractor.depthMultiplier`, None without it. Read apart from `Settings`,
+    whose fields are the reference's."""
+    d = load_yaml(path)
+    return float(d["Extractor.depthMultiplier"]) if "Extractor.depthMultiplier" in d else None
+
+
+def make_hfnet(depth_multiplier=None, weights=None, device=None):
+    """The runners' HF-Net on `device` (None means CUDA): the .npz `weights`
+    at `depth_multiplier` (None: the file's own width; a file of another
+    width raises), or without weights He-initialized from seed 0 at that
+    width (1.0 for None)."""
+    import torch
+
+    from .. import device as D
+    from ..models import hfnet
+
+    dev = D.resolve(device)
+    if weights:
+        return hfnet.load_params(weights, device=dev, depth_multiplier=depth_multiplier)
+    m = 1.0 if depth_multiplier is None else depth_multiplier
+    return hfnet.HFNet(torch.Generator(device=dev).manual_seed(0), m)
+
+
 def _mat(node) -> Optional[np.ndarray]:
     """Decode an opencv-matrix node {rows, cols, dt, data}."""
     if node is None:
